@@ -51,6 +51,8 @@ def pytest_configure(config):
         "(run with TPU_SDR_TEST_PLATFORM=tpu)")
     config.addinivalue_line(
         "markers", "slow: multi-process / long-running integration test")
+    config.addinivalue_line(
+        "markers", "cuda: runs a CUDA kernel of tpu_sdr_torch; needs a GPU")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,100 @@
+"""tpu_sdr_torch.apps.simple_fm on the CPU, and the port's freedom from jax.
+
+The CLI runs in file mode with ``--torch-device cpu`` (the plain PyTorch
+versions of the kernels) and must recover the capture's 1 kHz tone; a
+subprocess with ``TPU_SDR_PLATFORM`` unset runs the whole slice and must
+never import jax — the machine with the GPU has none.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_sdr.utils import synth
+from tpu_sdr_torch.apps import simple_fm
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CHUNK = 130_560
+
+
+@pytest.fixture(scope="module")
+def capture_file(tmp_path_factory):
+    u8, _ = synth.synth_wbfm_u8(8 * CHUNK // 2, capture_rate=1_020_000,
+                                noise_std=0.01, seed=5)
+    path = tmp_path_factory.mktemp("cap") / "cap.u8"
+    np.asarray(u8, dtype=np.uint8).tofile(path)
+    return str(path)
+
+
+def _run(argv, capsysbinary):
+    assert simple_fm.main(argv) == 0
+    return np.frombuffer(capsysbinary.readouterr().out, dtype="<i2")
+
+
+@pytest.mark.parametrize("mode", ["fused", "fir"])
+def test_cli_file_mode_recovers_tone(capture_file, capsysbinary, mode):
+    pcm = _run(["--file", capture_file, "--mode", mode, "--torch-device",
+                "cpu"], capsysbinary)
+    n_complex = os.path.getsize(capture_file) // 2
+    assert abs(len(pcm) - n_complex * 16 // (6 * 85)) <= 2048
+    snr = synth.tone_snr(pcm.astype(np.float64), 1_000.0, 32_000, skip=1500)
+    assert snr >= 40.0, f"--mode {mode}: tone SNR {snr:.1f} dB"
+
+
+def test_cli_fused_agrees_with_fir(capture_file, capsysbinary):
+    args = ["--file", capture_file, "--torch-device", "cpu", "--mode"]
+    fused = _run(args + ["fused"], capsysbinary).astype(np.float64)
+    fir = _run(args + ["fir"], capsysbinary).astype(np.float64)
+    n = min(len(fused), len(fir))
+    err = fused[:n] - fir[:n]
+    snr = 10 * np.log10(np.mean(fir[:n] ** 2) / max(np.mean(err ** 2), 1e-30))
+    assert snr >= 80.0, f"fused vs fir s16 output: {snr:.1f} dB"
+
+
+@pytest.mark.parametrize("extra", [["--mode", "exact"], ["--mode", "stereo"],
+                                   ["--rds"], ["--deemph", "75"]])
+def test_cli_unported_options_exit_with_usage_error(capture_file, extra):
+    with pytest.raises(SystemExit) as exc:
+        simple_fm.main(["--file", capture_file, "--torch-device", "cpu",
+                        *extra])
+    assert exc.value.code == 2
+
+
+def test_cli_requires_cuda_by_default(capture_file, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        simple_fm.main(["--file", capture_file, "--mode", "fused"])
+
+
+def test_port_never_imports_jax(capture_file):
+    """Import every module of the port and run the slice, CLI included,
+    in a fresh interpreter; jax must stay out of sys.modules."""
+    code = f"""
+import sys, io, pkgutil, importlib
+import numpy as np
+import tpu_sdr_torch
+for m in pkgutil.walk_packages(tpu_sdr_torch.__path__, "tpu_sdr_torch."):
+    importlib.import_module(m.name)
+from tpu_sdr_torch.ops.fused_fm import FusedWbfmStreamer
+from tpu_sdr_torch.models.wbfm import WbfmStreamer
+from tpu_sdr_torch.apps import simple_fm
+buf = np.fromfile({capture_file!r}, dtype=np.uint8)
+assert FusedWbfmStreamer(device="cpu").demodulate(buf).size > 0
+assert WbfmStreamer(device="cpu").demodulate(buf).size > 0
+sys.stdout = io.TextIOWrapper(io.BytesIO())
+assert simple_fm.main(["--file", {capture_file!r}, "--mode", "fused",
+                       "--torch-device", "cpu"]) == 0
+sys.stdout = sys.__stdout__
+print("JAX_LOADED", "jax" in sys.modules)
+"""
+    env = {k: v for k, v in os.environ.items() if k != "TPU_SDR_PLATFORM"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "JAX_LOADED False" in proc.stdout, proc.stdout + proc.stderr

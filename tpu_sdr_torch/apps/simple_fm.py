@@ -1,0 +1,142 @@
+"""simple_fm on PyTorch/CUDA — WBFM receiver emitting raw s16 mono audio on
+stdout, the port of ``tpu_sdr.apps.simple_fm``.
+
+Reads a raw u8 I/Q capture (``--file``), a remote rtl_tcp server
+(``--tcp``) or a local dongle, through the JAX package's framework-free
+host code (``output``, ``process_loop``, ``run_file``, the feeder and the
+device control plane), and demodulates on a CUDA device:
+
+  fir    the float32 chain in plain PyTorch (default, as in the JAX CLI)
+  fused  the two hand-written CUDA kernels (fm_front -> fm_resample)
+
+The GPU is required: without one the CLI raises, unless ``--torch-device
+cpu`` asks for the plain PyTorch versions on the CPU.
+
+Play with:  python -m tpu_sdr_torch.apps.simple_fm | play -r 32k -t raw -e s -b 16 -c 1 -V1 -
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+import threading
+
+from tpu_sdr import DEFAULT_BUF_LENGTH
+from tpu_sdr.apps.simple_fm import (FREQUENCY, SAMPLE_RATE, process_loop,
+                                    run_file)
+
+log = logging.getLogger("simple_fm")
+
+PORTED_MODES = ("fir", "fused")
+UNPORTED_MODES = ("exact", "boxcar", "stereo")
+
+
+def make_demodulator(mode: str, device):
+    """Return (demod_fn(u8 block) -> np s16 audio, description)."""
+    import torch
+
+    from tpu_sdr.native import f32_to_s16
+
+    if mode == "fused":
+        from tpu_sdr_torch.ops.fused_fm import FusedWbfmStreamer
+
+        streamer = FusedWbfmStreamer(device=device)
+        desc = "fused chain (fm_front + fm_resample kernels)"
+    elif mode == "fir":
+        from tpu_sdr_torch.models.wbfm import WbfmStreamer
+
+        streamer = WbfmStreamer(device=device)
+        desc = "float chain (fir)"
+    else:
+        raise ValueError(f"mode {mode!r} is not ported yet")
+    if device.type == "cuda":
+        desc += f" on {torch.cuda.get_device_name(device)}"
+
+    def demod(buf):
+        return f32_to_s16(streamer.demodulate(buf))
+
+    return demod, f"{desc}, {device}"
+
+
+def main(argv=None) -> int:
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr)
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--freq", type=int, default=FREQUENCY)
+    p.add_argument("--file", help="read raw u8 I/Q from file instead of a device")
+    p.add_argument("--tcp", metavar="HOST:PORT",
+                   help="stream from a remote rtl_tcp server instead of a "
+                        "local device (tunes it to --freq)")
+    p.add_argument("--device", type=int, default=0, help="dongle index")
+    p.add_argument("--mode", choices=PORTED_MODES + UNPORTED_MODES,
+                   default="fir")
+    p.add_argument("--torch-device", default="cuda",
+                   help="where to demodulate: cuda (default; raises without "
+                        "a GPU), cuda:N, or cpu for the plain PyTorch versions")
+    p.add_argument("--deemph", type=float, default=0.0, metavar="US",
+                   help="de-emphasis (not ported yet)")
+    p.add_argument("--rds", action="store_true", help="RDS (not ported yet)")
+    p.add_argument("--blocks", type=int, default=0,
+                   help="stop after N blocks (device/tcp modes; 0 = run "
+                        "until interrupted)")
+    args = p.parse_args(argv)
+    if args.mode in UNPORTED_MODES:
+        p.error(f"--mode {args.mode} is not ported yet (ported: "
+                f"{', '.join(PORTED_MODES)}); use python -m "
+                "tpu_sdr.apps.simple_fm")
+    if args.deemph or args.rds:
+        p.error("--deemph and --rds are not ported yet; use python -m "
+                "tpu_sdr.apps.simple_fm")
+
+    from tpu_sdr_torch.device import resolve_device
+    from tpu_sdr_torch.utils.design import optimal_settings
+
+    device = resolve_device(args.torch_device)
+    radio, _demod_cfg = optimal_settings(args.freq, SAMPLE_RATE)
+    demod, desc = make_demodulator(args.mode, device)
+    log.info("Demodulating with %s", desc)
+
+    if args.file:
+        run_file(args.file, demod)
+        return 0
+
+    from tpu_sdr.stream.feeder import BlockFeeder
+
+    if args.tcp:
+        from tpu_sdr.stream.feeder import RtlTcpClientSource
+
+        host, _, port = args.tcp.rpartition(":")
+        src = RtlTcpClientSource(host or "127.0.0.1", int(port))
+        src.set_sample_rate(radio.capture_rate)
+        src.set_frequency(radio.capture_freq)
+        src.set_gain_mode(False)
+        log.info("Streaming from rtl_tcp://%s, tuned to %d Hz at %d S/s",
+                 args.tcp, radio.capture_freq, radio.capture_rate)
+    else:
+        from tpu_sdr.api import DeviceId, RtlSdr, TunerGain
+        from tpu_sdr.stream.feeder import DeviceSource
+
+        sdr = RtlSdr.open(DeviceId.index(args.device))
+        sdr.set_tuner_gain(TunerGain.AUTO)
+        sdr.set_bias_tee(False)
+        sdr.reset_buffer()
+        sdr.set_center_freq(radio.capture_freq)
+        sdr.set_sample_rate(radio.capture_rate)
+        log.info("Tuned to %d Hz, sampling at %d S/s",
+                 sdr.get_center_freq(), sdr.get_sample_rate())
+        src = DeviceSource(sdr)
+
+    shutdown = threading.Event()
+    feeder = BlockFeeder(src, block_bytes=DEFAULT_BUF_LENGTH,
+                         queue_blocks=16).start()
+    try:
+        process_loop(demod, feeder, shutdown, args.blocks)
+    except KeyboardInterrupt:
+        shutdown.set()
+    finally:
+        feeder.stop()  # also closes the device
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

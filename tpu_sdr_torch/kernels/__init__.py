@@ -1,0 +1,118 @@
+"""Build and bind the port's CUDA kernels (``tpu_sdr_torch/csrc/*.cu``).
+
+At first use ``nvcc`` compiles every source into one shared library with a
+plain C interface, for Hopper only (``sm_90a``), under
+``tpu_sdr_torch/_build/``.  The file name carries a hash of the sources and
+flags, so an edited source builds anew; the build writes a temporary file
+and renames it into place, so concurrent processes never load half a
+library.  The library is bound with ``ctypes``: pointers and the stream go
+as ``c_void_p``, and every launch returns its CUDA status, which
+:func:`check` turns into an exception.
+
+Nothing here runs at import time: the CPU tests import the port without a
+compiler or a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from dataclasses import dataclass
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_loaded: "Library | None" = None
+
+
+@dataclass
+class Library:
+    cdll: ctypes.CDLL
+    path: str
+    build_seconds: float  # 0.0 when an up-to-date build was reused
+    build_log: str        # nvcc's output (ptxas register/smem report)
+
+
+def find_nvcc() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else nvcc on PATH, else
+    ``/usr/local/cuda/bin/nvcc``."""
+    candidates = [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    if os.environ.get("CUDA_HOME"):
+        candidates.insert(0, os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    for c in candidates:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put the CUDA "
+                       "toolkit's bin directory on PATH")
+
+
+def _sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(SRC_DIR, "*.cu")))
+
+
+def _digest(sources: list[str]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources:
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def build() -> tuple[str, float, str]:
+    """Compile the sources unless an identical build exists; returns
+    (library path, seconds spent compiling, compiler output)."""
+    sources = _sources()
+    path = os.path.join(BUILD_DIR, f"libtsdr_torch_{_digest(sources)}.so")
+    if os.path.exists(path):
+        return path, 0.0, ""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.tmp{os.getpid()}"
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
+    t0 = time.monotonic()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.monotonic() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, path)
+    return path, seconds, proc.stdout + proc.stderr
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.tsdr_fm_front.argtypes = [p, ll, i, p, p, i, i, p, p, p]
+    lib.tsdr_fm_front.restype = i
+    lib.tsdr_fm_resample.argtypes = [p, ll, p, p, i, i, i, p, p, p]
+    lib.tsdr_fm_resample.restype = i
+    lib.tsdr_error_string.argtypes = [i]
+    lib.tsdr_error_string.restype = ctypes.c_char_p
+
+
+def load() -> Library:
+    """The bound kernel library, built on first use."""
+    global _loaded
+    with _lock:
+        if _loaded is None:
+            path, seconds, log = build()
+            cdll = ctypes.CDLL(path)
+            _declare(cdll)
+            _loaded = Library(cdll, path, seconds, log)
+        return _loaded
+
+
+def check(status: int, name: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if status != 0:
+        msg = load().cdll.tsdr_error_string(status).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {status} ({msg})")
