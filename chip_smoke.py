@@ -5,14 +5,22 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from ``tpu_sdr_torch/csrc``, holds each
-against its plain PyTorch version at the main path's real block size
-(12,533,760 complex samples, 25 MB of u8 I/Q, all four fs/4 phases),
-drives the main path once through its user entry point
-(``tpu_sdr_torch.apps.simple_fm --mode fused`` on a 10.24 s synthetic
-station), checks that both kernels ran and that the audio is right, and
-times the kernels and their plain versions with CUDA events, the streamer
-and the CLI with the host clock.
+It builds the port's CUDA kernels from ``tpu_sdr_torch/csrc`` and drives
+both ported paths through their user entry points:
+
+* single station: K1 (``fm_front``, all four fs/4 phases) and K2
+  (``fm_resample``) against their plain PyTorch versions on a 25 MB block
+  (12,533,760 complex samples), then ``tpu_sdr_torch.apps.simple_fm --mode
+  fused`` on a 10.24 s synthetic station;
+* wideband: K3 (``pfb_channelize``) against its plain version on a 25 MB
+  block of an 8-station capture at 10.88 Msps (all 64 channels and a
+  16-channel column slice), then ``tpu_sdr_torch.apps.multi_fm --fused``
+  on 1.024 s of it, against the plain front.
+
+Each path's launch counts are zeroed just before it runs and read just
+after; the audio is checked (length, tone SNR, agreement with the plain
+PyTorch chain).  The kernels and their plain versions are timed with CUDA
+events, the streamer and the CLIs with the host clock.
 
 The last two lines of stdout are a JSON line describing the kernels and
 ``{"ok": true, "device": {...}}``; any failure raises (non-zero exit, no
@@ -41,6 +49,16 @@ SNR_TONE_DB = 45.0
 SNR_FIR_DB = 80.0
 REPS = 11
 SPIN_CYCLES = 5_000_000      # ~2.5 ms of GPU clock: longer than any enqueue
+
+# wideband: channels of 170 kHz at 10.88 Msps; four positive offsets, four negative
+WB_CHANNELS = (3, 9, 15, 21, 43, 49, 55, 60)
+WB_TONES = (700.0, 1_000.0, 1_400.0, 1_800.0, 2_200.0, 2_600.0, 3_000.0,
+            3_300.0)
+WB_BLOCK_CHUNKS = 288        # x 43,520 complex = the same 25 MB block
+WB_PATH_READS = 32           # x 696,320 bytes = 1.024 s at 10.88 Msps
+WB_READ_BYTES = 696_320
+SNR_STATION_DB = 25.0        # tests/test_wideband.py's bar
+SNR_FRONTS_DB = 70.0         # fused vs plain front, tests/test_wideband.py
 
 
 def require(cond: bool, msg: str) -> None:
@@ -122,6 +140,125 @@ def run_app(argv: list[str]):
         sys.stdout = saved
     require(rc == 0, f"simple_fm {' '.join(argv)} returned {rc}")
     return pcm
+
+
+def wideband(dev, flush) -> dict:
+    """The wideband path: (a) K3 against its plain version on the 25 MB
+    block, (b) ``multi_fm --fused`` on 1.024 s of 8 stations against the
+    plain front, (c) device timings.  Returns the numbers for the result
+    lines."""
+    import numpy as np
+    import torch
+
+    from tpu_sdr.utils import synth
+    from tpu_sdr_torch.apps import multi_fm
+    from tpu_sdr_torch.models import wbfm_wideband as WB
+    from tpu_sdr_torch.ops import fused_channelizer as FC
+
+    config = WB.WidebandConfig(channels=WB_CHANNELS)
+    spec = WB.fused_spec(config)
+    params = WB.make_params(config, device=dev)
+    K = config.num_channels
+    n_block = WB_BLOCK_CHUNKS * spec.chunk_complex
+    t0 = time.monotonic()
+    u8, _ = synth.synth_multistation_u8(
+        n_block, config.capture_rate,
+        station_freqs=[(k if k <= K // 2 else k - K) * config.channel_rate
+                       for k in WB_CHANNELS],
+        audio_freqs=list(WB_TONES), deviation=45_000.0)
+    u8 = np.ascontiguousarray(u8, dtype=np.uint8)
+    data = torch.from_numpy(u8).to(dev)
+    print(f"wideband capture: {n_block} complex, {len(WB_CHANNELS)} stations "
+          f"at {config.capture_rate / 1e6:.2f} Msps, made in "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+
+    # ---- (a) K3 against its plain version ------------------------------
+    # a mid-stream carry: the state after the block's own last chunk
+    _, carry = FC.channelize_reference(data[-spec.chunk_bytes:],
+                                       FC.init_carry(spec, dev),
+                                       params.kernel_m2, spec)
+    sliced = FC.kernel_matrix(params.h_poly.cpu().numpy(),
+                              slice(16, 32)).to(dev)
+    err, snrs = 0.0, {}
+    for local, m2 in ((None, params.kernel_m2), (16, sliced)):
+        sp = spec._replace(local_channels=local)
+        y_re, y_im, c_k = FC.channelize(data, carry, m2, sp)
+        y_r, c_r = FC.channelize_reference(data, carry, m2, sp)
+        torch.cuda.synchronize()
+        y_k = torch.cat([y_re, y_im], dim=1)
+        require(y_k.shape == (n_block // K, 2 * sp.out_channels),
+                f"pfb_channelize: output of shape {tuple(y_k.shape)}")
+        s = snr_db(y_r.cpu().numpy(), y_k.cpu().numpy())
+        e = float((y_k - y_r).abs().max())
+        require(s >= SNR_KERNEL_DB, f"pfb_channelize Ko={sp.out_channels}: "
+                f"{s:.1f} dB < {SNR_KERNEL_DB}")
+        require(torch.equal(c_k, c_r), "pfb_channelize: carry differs")
+        snrs[sp.out_channels] = s
+        err = max(err, e)
+        print(f"pfb_channelize Ko={sp.out_channels}: {s:.1f} dB vs plain, "
+              f"max |dy| {e:.3g} (|y| up to "
+              f"{float(y_r.abs().max()):.3g}), carry equal", flush=True)
+    del y_re, y_im, y_k, y_r
+
+    # ---- (b) the user entry point on 1.024 s of 8 stations ---------------
+    n_path = WB_PATH_READS * WB_READ_BYTES // 2
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "wideband.u8")
+        u8[: 2 * n_path].tofile(path)
+        argv = ["--file", path, "--channels", ",".join(map(str, WB_CHANNELS))]
+        FC.reset_launch_counts()
+        t0 = time.monotonic()
+        rc = multi_fm.main(argv + ["--fused", "--out-dir",
+                                   os.path.join(tmp, "fused")])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = FC.LAUNCHES["pfb_channelize"]
+        require(rc == 0, f"multi_fm --fused returned {rc}")
+        require(multi_fm.main(argv + ["--out-dir", os.path.join(tmp, "plain")])
+                == 0, "multi_fm (plain front) failed")
+
+        def station(front, ch):
+            return np.fromfile(os.path.join(tmp, front, f"station_{ch}.raw"),
+                               dtype="<i2").astype(np.float64)
+
+        fused = [station("fused", ch) for ch in WB_CHANNELS]
+        plain = [station("plain", ch) for ch in WB_CHANNELS]
+    require(launches > 0, "the wideband path never launched pfb_channelize")
+    expect = n_path // K // config.resample_down * config.resample_up
+    tones = []
+    for ch, tone, f, p in zip(WB_CHANNELS, WB_TONES, fused, plain):
+        require(len(f) == len(p) == expect,
+                f"station {ch}: {len(f)}/{len(p)} samples, expected {expect}")
+        s = synth.tone_snr(f, tone, config.rate_resample, skip=400)
+        require(s >= SNR_STATION_DB,
+                f"station {ch}: tone SNR {s:.1f} dB < {SNR_STATION_DB}")
+        tones.append(s)
+    s_fronts = snr_db(np.stack(plain), np.stack(fused))
+    require(s_fronts >= SNR_FRONTS_DB,
+            f"multi_fm fused vs plain front: {s_fronts:.1f} dB")
+    realtime_x = n_path / wall / config.capture_rate
+    print(f"wideband path: {len(WB_CHANNELS)} stations x {expect} samples, "
+          f"tones {', '.join(f'{t:.1f}' for t in tones)} dB, fused vs plain "
+          f"{s_fronts:.1f} dB, launches {launches}, wall {wall:.3f} s = "
+          f"{n_path / wall / 1e6:.3f} Msps = {realtime_x:.2f}x real time",
+          flush=True)
+
+    # ---- (c) device timings on the 25 MB block ---------------------------
+    state = WB.init_state(config, params)
+    ms = device_ms({
+        "pfb_channelize_plain": lambda: FC.channelize_reference(
+            data, carry, params.kernel_m2, spec),
+        "pfb_channelize": lambda: FC.channelize(data, carry, params.kernel_m2,
+                                                spec),
+        "wideband_device": lambda: WB.demodulate_block_fused(
+            data, carry, state.quad, state.resamp.hist, params, config, spec),
+        "wideband_plain_device": lambda: WB.demodulate_block(
+            data, state, params, config),
+    }, flush=flush)
+    return {"err": err, "snr_db": snrs, "launches": launches, "ms": ms,
+            "path": {"complex": n_path, "stations": len(WB_CHANNELS),
+                     "tone_db": tones, "fused_vs_plain_db": s_fronts,
+                     "wall_s": wall, "realtime_x": realtime_x}}
 
 
 def main() -> int:
@@ -246,6 +383,10 @@ def main() -> int:
     }, flush=flush_buf.zero_)
     streamer = FF.FusedWbfmStreamer(device=dev)
     ms["streamer_block"] = host_ms(lambda: streamer.demodulate(u8))
+
+    # ---- the wideband path: K3 and multi_fm --fused ---------------------
+    wb = wideband(dev, flush_buf.zero_)
+    ms.update(wb["ms"])
     for name, t in ms.items():
         print(f"time {name}: {t:.4f} ms = {BLOCK_COMPLEX / t / 1e3:.1f} Msps "
               f"({smi})", flush=True)
@@ -254,6 +395,7 @@ def main() -> int:
         "snr_fm_front_db": snrs, "snr_fm_resample_db": s_rs,
         "path": {"complex": n_path, "tone_db": tone, "vs_fir_db": s_fir,
                  "wall_s": app_s, "realtime_x": n_path / app_s / REALTIME_SPS},
+        "snr_pfb_channelize_db": wb["snr_db"], "wideband_path": wb["path"],
     }), flush=True)
 
     print(json.dumps({"kernels": [
@@ -267,6 +409,11 @@ def main() -> int:
          "replaces": "tpu_sdr/ops/pallas_fm.py:760",
          "launches": launches["fm_resample"], "max_abs_err": err_resample,
          "ms": ms["fm_resample"], "plain_ms": ms["fm_resample_plain"]},
+        {"name": "pfb_channelize", "route": "cuda",
+         "source": "tpu_sdr_torch/csrc/pfb_channelize.cu",
+         "replaces": "tpu_sdr/ops/pallas_channelizer.py:92",
+         "launches": wb["launches"], "max_abs_err": wb["err"],
+         "ms": ms["pfb_channelize"], "plain_ms": ms["pfb_channelize_plain"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

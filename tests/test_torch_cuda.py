@@ -15,7 +15,10 @@ import pytest
 import torch
 
 from tpu_sdr.utils import synth
+from tpu_sdr_torch.models import wbfm_wideband as WB
+from tpu_sdr_torch.ops import fused_channelizer as FC
 from tpu_sdr_torch.ops import fused_fm as FF
+from tpu_sdr_torch.utils import design
 
 torch.set_num_threads(1)
 
@@ -140,3 +143,84 @@ def test_cli_fused_mode_on_the_card(capture, dev, tmp_path):
     assert len(pcm) == 4 * 2 * SPEC.audio_per_chunk
     assert synth.tone_snr(pcm.astype(np.float64), 1_000.0, 32_000,
                           skip=1500) >= 30.0
+
+
+# ---- K3: the PFB channelizer ------------------------------------------------
+
+WB_SPEC = WB.fused_spec(WB.WidebandConfig())  # K=64, R=9, C=680
+
+
+@pytest.mark.parametrize("channel_slice,local", [(None, None),
+                                                 (slice(16, 32), 16)])
+@pytest.mark.parametrize("chunks", [1, 3, 288])
+def test_pfb_channelize_kernel_matches_plain(dev, chunks, channel_slice,
+                                             local):
+    rng = np.random.default_rng(chunks)
+    spec = WB_SPEC._replace(local_channels=local)
+    data = torch.from_numpy(rng.integers(
+        0, 256, chunks * spec.chunk_bytes, dtype=np.uint8)).to(dev)
+    # a mid-stream carry: 2H frames of x255 integers
+    carry = torch.from_numpy((rng.integers(0, 256, (16, 64)) * 2 - 255)
+                             .astype(np.float32)).to(dev)
+    h = design.design_pfb(64, 8, cutoff_frac=0.95)
+    m2 = FC.kernel_matrix(h, channel_slice).to(dev)
+    before = FC.LAUNCHES["pfb_channelize"]
+    y_re, y_im, c = FC.channelize(data, carry, m2, spec)
+    y, cr = FC.channelize_reference(data, carry, m2, spec)
+    assert FC.LAUNCHES["pfb_channelize"] == before + 1
+    assert y_re.shape == (chunks * spec.frames_per_chunk, spec.out_channels)
+    got = torch.cat([y_re, y_im], dim=1)
+    assert _snr_db(y.cpu(), got.cpu()) >= 100.0
+    assert torch.equal(c, cr)
+
+
+@pytest.mark.parametrize("frames", [3, 100])
+def test_pfb_channelize_kernel_short_calls(dev, frames):
+    """Calls of fewer frames than the carry's 8 rows (the carry shifts) and
+    not a whole number of thread blocks (masked tail)."""
+    rng = np.random.default_rng(frames)
+    data = torch.from_numpy(rng.integers(0, 256, 2 * 64 * frames,
+                                         dtype=np.uint8)).to(dev)
+    carry = torch.from_numpy((rng.integers(0, 256, (16, 64)) * 2 - 255)
+                             .astype(np.float32)).to(dev)
+    m2 = FC.kernel_matrix(design.design_pfb(64, 8, cutoff_frac=0.95)).to(dev)
+    y_re, y_im, c = FC.channelize(data, carry, m2, WB_SPEC)
+    y, cr = FC.channelize_reference(data, carry, m2, WB_SPEC)
+    assert y_re.shape == (frames, 64)
+    assert _snr_db(y.cpu(), torch.cat([y_re, y_im], dim=1).cpu()) >= 100.0
+    assert torch.equal(c, cr)
+
+
+def test_pfb_channelize_rejects_bad_tensors(dev):
+    m2 = torch.zeros(9 * 64, 128, device=dev)
+    carry = torch.zeros(16, 64, device=dev)
+    data = torch.zeros(WB_SPEC.chunk_bytes + 2, dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError):  # carry on the CPU
+        FC.channelize(data[:-2], carry.cpu(), m2, WB_SPEC)
+    with pytest.raises(ValueError):  # not 2-byte aligned
+        FC.channelize(data[1:-1], carry, m2, WB_SPEC)
+    with pytest.raises(ValueError):  # M2 of the wrong width
+        FC.channelize(data[:-2], carry, m2[:, :64].contiguous(), WB_SPEC)
+
+
+@pytest.fixture(scope="module")
+def wideband_capture():
+    u8, _ = synth.synth_multistation_u8(
+        348_160, 10_880_000, station_freqs=[3 * 170e3, -4 * 170e3],
+        audio_freqs=[1_000.0, 2_500.0], deviation=45_000.0)
+    return np.asarray(u8, dtype=np.uint8)
+
+
+def test_cuda_wideband_streamer_matches_plain(wideband_capture, dev):
+    config = WB.WidebandConfig(channels=(3, 60))
+    FC.reset_launch_counts()
+    gpu = WB.WidebandStreamer(config, use_fused=True, device=dev)
+    fused = np.concatenate([gpu.demodulate(wideband_capture[:87_040 * 3]),
+                            gpu.demodulate(wideband_capture[87_040 * 3:])],
+                           axis=1)
+    assert FC.LAUNCHES["pfb_channelize"] == 2
+    cpu = WB.WidebandStreamer(config, use_fused=True, device="cpu")
+    assert _snr_db(cpu.demodulate(wideband_capture), fused) >= 100.0
+    plain = WB.WidebandStreamer(config, device=dev).demodulate(wideband_capture)
+    assert _snr_db(plain, fused) >= 70.0
+    assert synth.tone_snr(fused[0], 1_000.0, 32_000, skip=400) >= 25.0

@@ -6,9 +6,12 @@ CUDA C++ for Hopper (``csrc/``).  It imports ``torch`` and never ``jax``:
 it reuses only the jax-free host modules of ``tpu_sdr`` (filter design,
 synthetic captures, the native s16 conversion, the feeder and the device
 control plane).  Keep ``TPU_SDR_PLATFORM`` unset when importing it: that
-variable makes ``tpu_sdr/__init__.py`` import jax.
+variable makes ``tpu_sdr/__init__.py`` load JAX.
 
 Ported so far: the single-station WBFM receive path, as the f32 float
 chain (``models.wbfm``) and as the fused two-kernel chain
-(``ops.fused_fm``), behind ``python -m tpu_sdr_torch.apps.simple_fm``.
+(``ops.fused_fm``), behind ``python -m tpu_sdr_torch.apps.simple_fm``; and
+the wideband multi-station path (``models.wbfm_wideband``) with the plain
+or the K3 channelizer (``ops.channelizer``, ``ops.fused_channelizer``),
+behind ``python -m tpu_sdr_torch.apps.multi_fm``.
 """

@@ -6,6 +6,13 @@ layout, so the (4, 128) carry, the resampler history and the fs/4 phase
 convert 1:1; the weights convert from the TPU kernel's forms — the
 split-bf16 banded decimator ``(W_hi, W_lo)`` and the packed resampler
 frame matrix ``V`` — to the port's effective taps and polyphase bank.
+
+The wideband receiver converts the same way: the XLA front's ``PfbState``
+and the fused front's (2H, K) carry keep their layouts and scales (the
+former normalised, the latter x255; ``fused_channelizer`` converts between
+the two), the stacked discriminator and resampler states keep their
+station axis, and the weights come from the JAX ``WidebandParams`` and the
+Pallas ``(M2_hi, M2_lo)`` pair.
 """
 
 from __future__ import annotations
@@ -14,8 +21,11 @@ import numpy as np
 import torch
 
 from tpu_sdr_torch.models import wbfm as M
+from tpu_sdr_torch.models import wbfm_wideband as WB
+from tpu_sdr_torch.ops import channelizer as chan
 from tpu_sdr_torch.ops import fm as F
 from tpu_sdr_torch.ops.fused_fm import FusedWbfmSpec, effective_taps
+from tpu_sdr_torch.utils.design import split_bf16_sum
 
 
 def poly_from_matrix(V, up: int, down: int) -> torch.Tensor:
@@ -71,3 +81,63 @@ def wbfm_state_from_jax(state, *, device: str | torch.device) -> M.WbfmState:
         F.FirState(t(state.fir.hist_re), t(state.fir.hist_im)),
         F.QuadState(t(state.quad.pre_re), t(state.quad.pre_im)),
         F.AlignedResampleState(t(state.resamp.hist)))
+
+
+def _tensor(x, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
+
+
+def pfb_matrix_from_conv_weights(W) -> torch.Tensor:
+    """M2 = [M_re | M_im] (rows*K, 2K) read back from the XLA front's conv
+    weights (``channelizer.pfb_conv_weights``: W[k, p, rows-1-t] =
+    M_re[t*K + p, k], W[K + k, p, rows-1-t] = M_im[t*K + p, k])."""
+    W = np.asarray(W, dtype=np.float32)
+    K, rows = W.shape[0] // 2, W.shape[2]
+    t_first = W[:, :K, ::-1].transpose(2, 1, 0)  # (t, p, [re k | im k])
+    return torch.from_numpy(np.ascontiguousarray(t_first).reshape(rows * K,
+                                                                  2 * K))
+
+
+def wideband_params_from_jax(params, m2_hi, m2_lo, config: WB.WidebandConfig,
+                             *, device: str | torch.device) -> WB.WidebandParams:
+    """A JAX ``WidebandParams`` and the Pallas front's ``(M2_hi, M2_lo)``
+    -> the port's ``WidebandParams`` for ``config``."""
+    port = WB.make_params(config, device=device)
+    port.h_poly = _tensor(params.h_poly, device)
+    port.pfb_m2 = pfb_matrix_from_conv_weights(params.pfb_W).to(device)
+    port.kernel_m2 = split_bf16_sum(m2_hi, m2_lo).to(device)
+    port.resamp_V = _tensor(params.resamp_V, device)
+    return port
+
+
+def pfb_carry_from_jax(carry, *, device: str | torch.device) -> torch.Tensor:
+    """The Pallas front's (2H, K) carry -> the port's K3 carry."""
+    return _tensor(carry, device)
+
+
+def pfb_carry_to_jax(carry: torch.Tensor) -> np.ndarray:
+    return carry.cpu().numpy()
+
+
+def wideband_state_from_jax(state, *, device: str | torch.device
+                            ) -> WB.WidebandState:
+    """A JAX ``WidebandState`` (XLA ``PfbState`` and the stacked
+    discriminator and resampler states) -> the port's."""
+    return WB.WidebandState(
+        chan.PfbState(_tensor(state.pfb.hist_re, device),
+                      _tensor(state.pfb.hist_im, device)),
+        F.QuadState(_tensor(state.quad.pre_re, device),
+                    _tensor(state.quad.pre_im, device)),
+        F.AlignedResampleState(_tensor(state.resamp.hist, device)))
+
+
+def wideband_state_to_jax(state: WB.WidebandState):
+    """The port's ``WidebandState`` -> numpy arrays nested as the JAX
+    ``WidebandState``'s fields: ((hist_re, hist_im), (pre_re, pre_im),
+    (hist,))."""
+    def n(x):
+        return x.cpu().numpy()
+
+    return ((n(state.pfb.hist_re), n(state.pfb.hist_im)),
+            (n(state.quad.pre_re), n(state.quad.pre_im)),
+            (n(state.resamp.hist),))

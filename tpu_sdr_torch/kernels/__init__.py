@@ -7,7 +7,9 @@ flags, so an edited source builds anew; the build writes a temporary file
 and renames it into place, so concurrent processes never load half a
 library.  The library is bound with ``ctypes``: pointers and the stream go
 as ``c_void_p``, and every launch returns its CUDA status, which
-:func:`check` turns into an exception.
+:func:`check` turns into an exception.  The wrappers decide with
+:func:`on_cuda` whether to launch and validate each tensor with
+:func:`check_tensor` before its pointer goes to C.
 
 Nothing here runs at import time: the CPU tests import the port without a
 compiler or a card.
@@ -24,6 +26,8 @@ import subprocess
 import threading
 import time
 from dataclasses import dataclass
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
@@ -95,6 +99,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tsdr_fm_front.restype = i
     lib.tsdr_fm_resample.argtypes = [p, ll, p, p, i, i, i, p, p, p]
     lib.tsdr_fm_resample.restype = i
+    lib.tsdr_pfb_channelize.argtypes = [p, ll, i, i, i, p, p, p, p, p]
+    lib.tsdr_pfb_channelize.restype = i
     lib.tsdr_error_string.argtypes = [i]
     lib.tsdr_error_string.restype = ctypes.c_char_p
 
@@ -116,3 +122,27 @@ def check(status: int, name: str) -> None:
     if status != 0:
         msg = load().cdll.tsdr_error_string(status).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {status} ({msg})")
+
+
+def on_cuda(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (take the plain version); any other device raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {t.device}")
+
+
+def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, device,
+                 shape: tuple | None = None) -> None:
+    """Raise unless ``t`` has this device, dtype (and shape) and is
+    contiguous: what a kernel takes through a bare pointer."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if shape is not None and tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

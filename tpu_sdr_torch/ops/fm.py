@@ -103,17 +103,19 @@ def quad_init(device: torch.device) -> QuadState:
 def quadrature_demod(re: torch.Tensor, im: torch.Tensor, state: QuadState,
                      gain: float = 1.0):
     """``y[k] = gain * angle(x[k] * conj(x[k-1])) / pi`` with the exact
-    ``atan2`` and the carried previous sample.  Returns (y, new_state)."""
-    b_re = torch.cat([state.pre_re.reshape(1), re[:-1]])
-    b_im = torch.cat([state.pre_im.reshape(1), im[:-1]])
+    ``atan2`` and the carried previous sample, along the last axis: x of
+    shape (n,) with a scalar state, or (S, n) stations with (S,) states.
+    Returns (y, new_state)."""
+    b_re = torch.cat([state.pre_re[..., None], re[..., :-1]], dim=-1)
+    b_im = torch.cat([state.pre_im[..., None], im[..., :-1]], dim=-1)
     c_re = re * b_re + im * b_im
     c_im = im * b_re - re * b_im
     y = torch.atan2(c_im, c_re) * (gain / math.pi)
-    return y, QuadState(re[-1], im[-1])
+    return y, QuadState(re[..., -1], im[..., -1])
 
 
 class AlignedResampleState(NamedTuple):
-    hist: torch.Tensor  # (T-1,) trailing inputs
+    hist: torch.Tensor  # (T-1,) trailing inputs; (S, T-1) for S stations
 
 
 def aligned_resample_init(T: int, device: torch.device) -> AlignedResampleState:
@@ -123,16 +125,17 @@ def aligned_resample_init(T: int, device: torch.device) -> AlignedResampleState:
 
 def aligned_resample(x: torch.Tensor, V: torch.Tensor, up: int, down: int,
                      state: AlignedResampleState):
-    """Frame-matmul resampler: ``len(x)`` must be a multiple of the frame
-    span (``down`` times V's frames per row); emits ``len(x)//down*up``
-    samples in frame-major order.  Returns (audio, new_state)."""
+    """Frame-matmul resampler along the last axis of x ((n,), or (S, n)
+    stations with an (S, T-1) history): n must be a multiple of the frame
+    span (``down`` times V's frames per row); emits ``n//down*up`` samples
+    per station in frame-major order.  Returns (audio, new_state)."""
     F_ = V.shape[1] // up
     span = down * F_
     Tm1 = V.shape[0] - span
-    n = x.shape[0]
+    n = x.shape[-1]
     if n % span:
         raise ValueError(f"block of {n} not divisible by span={span}")
-    xe = torch.cat([state.hist, x])
-    frames = xe.unfold(0, span + Tm1, span)  # (R, Tm1 + span) windows
+    xe = torch.cat([state.hist, x], dim=-1)
+    frames = xe.unfold(-1, span + Tm1, span)  # (..., R, Tm1 + span) windows
     y = torch.matmul(frames, V)
-    return y.reshape(-1), AlignedResampleState(xe[n:])
+    return y.flatten(-2), AlignedResampleState(xe[..., n:])

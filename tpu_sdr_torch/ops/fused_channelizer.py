@@ -1,0 +1,225 @@
+"""Fused PFB channelizer: one CUDA kernel and its plain version — the
+counterpart of ``tpu_sdr/ops/pallas_channelizer.py``.
+
+    u8 I/Q bytes --K3 pfb_channelize--> (m, 2*Ko) f32 = [Y_re | Y_im]
+
+K3 (``csrc/pfb_channelize.cu``) unpacks the bytes to the x255 integer
+scale (``2*u8 - 255``), forms the frame windows ``X_win[m, t*K + p] =
+X[m - t, p]`` over R = taps_per_branch + 1 branch rows and multiplies them
+by the packed analysis matrix M2 = [M_re | M_im] / 255.  M2 is the TPU
+kernel's split-bf16 pair ``M2_hi + M2_lo`` summed in float32 once, so one
+f32 FMA per weight reproduces its two bf16 matmuls; the 1/255 divides the
+x255 scale back out, so the output equals ``channelizer.pfb_analyze`` on
+the normalised samples.  ``local_channels`` = Ko < K takes a column block
+of M2 (``make_packed_matrices(channel_slice=...)``), as the sharded path
+will.  The wrapper launches the kernel for a CUDA tensor (or raises), takes
+the plain version for a CPU tensor, and counts launches in
+:data:`LAUNCHES`.
+
+The carry keeps the JAX kernel's layout, so it converts 1:1: (2H, K) f32,
+the last H = R - 1 input frames in the x255 scale, re rows then im rows.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from tpu_sdr_torch import kernels
+from tpu_sdr_torch.ops import channelizer as chan
+from tpu_sdr_torch.utils import design
+
+# Kernel launches of the wrapper: the main path's proof that it ran K3.
+# Only the wrapper's CUDA branch adds to it.
+LAUNCHES = {"pfb_channelize": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+class PfbSpec(NamedTuple):
+    """Static geometry of the fused channelizer (field for field the JAX
+    ``PallasPfbSpec``, with the same :meth:`validate`, so that a spec valid
+    in one package is valid in the other)."""
+
+    num_channels: int      # K (input frame width = total channels)
+    branch_rows: int       # R = taps_per_branch + 1
+    frames_per_chunk: int  # C: frames per streaming chunk
+    # Output channels (column block of M2); < num_channels under
+    # channel-parallel sharding.
+    local_channels: int | None = None
+
+    @property
+    def out_channels(self) -> int:
+        return self.local_channels or self.num_channels
+
+    @property
+    def chunk_complex(self) -> int:
+        return self.frames_per_chunk * self.num_channels
+
+    @property
+    def chunk_bytes(self) -> int:
+        return 2 * self.chunk_complex
+
+    def validate(self) -> None:
+        """The JAX spec's conditions.  The last one is a limit of the TPU
+        compiler (an 8-row sublane roll), not of K3; it stays so that specs
+        stay interchangeable."""
+        if self.num_channels % 2:
+            raise ValueError(f"num_channels={self.num_channels} must be even")
+        if 2 * self.out_channels > 512:
+            raise ValueError(f"{self.out_channels} output channels: packed "
+                             "lanes beyond one matmul")
+        if self.frames_per_chunk % 8:
+            raise ValueError(f"frames_per_chunk={self.frames_per_chunk} is "
+                             "not a multiple of 8")
+        if self.branch_rows - 1 > self.frames_per_chunk:
+            raise ValueError("history longer than a chunk")
+        if (self.frames_per_chunk + self.branch_rows - 1) % 8:
+            raise ValueError("taps_per_branch must be a multiple of 8 "
+                             "(the TPU kernel's sublane roll)")
+
+
+def default_spec(num_channels: int = 64, taps_per_branch: int = 8,
+                 frames_per_chunk: int = 256) -> PfbSpec:
+    spec = PfbSpec(num_channels, taps_per_branch + 1, frames_per_chunk)
+    spec.validate()
+    return spec
+
+
+def make_packed_matrices(h_poly: np.ndarray, scale: float = 255.0,
+                         channel_slice: slice | None = None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(M2_hi, M2_lo) bf16 pair of [M_re | M_im] / ``scale``, rounded from
+    float64 as the JAX package rounds it.  ``channel_slice`` selects a
+    column block of M_re and M_im."""
+    M_re, M_im = design.pfb_mxu_matrices(h_poly)
+    if channel_slice is not None:
+        M_re = M_re[:, channel_slice]
+        M_im = M_im[:, channel_slice]
+    return design.make_split_bf16(np.concatenate([M_re, M_im], axis=1), scale)
+
+
+def kernel_matrix(h_poly: np.ndarray, channel_slice: slice | None = None
+                  ) -> torch.Tensor:
+    """K3's f32 weights: the packed pair summed, ``M2_hi + M2_lo``."""
+    return design.split_bf16_sum(*make_packed_matrices(
+        h_poly, channel_slice=channel_slice))
+
+
+def init_carry(spec: PfbSpec, device: str | torch.device) -> torch.Tensor:
+    H = spec.branch_rows - 1
+    return torch.zeros(2 * H, spec.num_channels, dtype=torch.float32,
+                       device=device)
+
+
+def carry_from_pfb_state(state: chan.PfbState) -> torch.Tensor:
+    """Plain front's state (normalised scale) -> (2H, K) carry (x255)."""
+    return torch.cat([state.hist_re, state.hist_im]) * 255.0
+
+
+def pfb_state_from_carry(carry: torch.Tensor) -> chan.PfbState:
+    """(2H, K) carry (x255) -> plain front's state (normalised scale)."""
+    H = carry.shape[0] // 2
+    return chan.PfbState(carry[:H] / 255.0, carry[H:] / 255.0)
+
+
+def _frames_x255(data_u8: torch.Tensor, K: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    x = data_u8.reshape(-1, K, 2).to(torch.float32) * 2.0 - 255.0
+    return x[..., 0], x[..., 1]
+
+
+def channelize_reference(data_u8: torch.Tensor, carry: torch.Tensor,
+                         m2: torch.Tensor, spec: PfbSpec
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K3: 2*m*K bytes, the (2H, K) carry and the f32 M2
+    (R*K, 2*Ko) -> ((m, 2*Ko) [Y_re | Y_im], new carry)."""
+    H = spec.branch_rows - 1
+    re, im = _frames_x255(data_u8, spec.num_channels)
+    ext_re = torch.cat([carry[:H], re])
+    ext_im = torch.cat([carry[H:], im])
+    y_re, y_im = chan.analyze_frames(ext_re, ext_im, m2)
+    return (torch.cat([y_re, y_im], dim=1),
+            torch.cat([ext_re[-H:], ext_im[-H:]]))
+
+
+def channelize(data_u8: torch.Tensor, carry: torch.Tensor, m2: torch.Tensor,
+               spec: PfbSpec) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3: u8 I/Q of m whole frames (2*m*K bytes) with the (2H, K) carry
+    and f32 M2 (R*K, 2*Ko) -> (Y_re (m, Ko), Y_im (m, Ko), new carry).
+    Y_re and Y_im are column views of one (m, 2*Ko) tensor."""
+    K, R, Ko = spec.num_channels, spec.branch_rows, spec.out_channels
+    H = R - 1
+    frame_bytes = 2 * K
+    if data_u8.numel() == 0 or data_u8.numel() % frame_bytes:
+        raise ValueError(f"{data_u8.numel()} bytes is not a positive whole "
+                         f"number of {K}-channel frames of I/Q pairs")
+    if not kernels.on_cuda(data_u8):
+        y, new = channelize_reference(data_u8, carry, m2, spec)
+        return y[:, :Ko], y[:, Ko:], new
+    dev = data_u8.device
+    kernels.check_tensor(data_u8, "data", torch.uint8, dev)
+    kernels.check_tensor(carry, "carry", torch.float32, dev, (2 * H, K))
+    kernels.check_tensor(m2, "m2", torch.float32, dev, (R * K, 2 * Ko))
+    if Ko % 4 or data_u8.data_ptr() % 2 or m2.data_ptr() % 16:
+        raise ValueError("local_channels must be a multiple of 4, the data "
+                         "2-byte and m2 16-byte aligned")
+    lib = kernels.load().cdll
+    m = data_u8.numel() // frame_bytes
+    y = torch.empty(m, 2 * Ko, dtype=torch.float32, device=dev)
+    new = torch.empty_like(carry)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = lib.tsdr_pfb_channelize(
+            data_u8.data_ptr(), m, K, R, Ko, carry.data_ptr(), m2.data_ptr(),
+            y.data_ptr(), new.data_ptr(), stream)
+    kernels.check(status, "pfb_channelize")
+    LAUNCHES["pfb_channelize"] += 1
+    return y[:, :Ko], y[:, Ko:], new
+
+
+class FusedPfb(nn.Module):
+    """K3's effective weights M2 as a buffer; ``forward`` is
+    :func:`channelize`."""
+
+    def __init__(self, h_poly: np.ndarray, spec: PfbSpec, *,
+                 device: str | torch.device):
+        super().__init__()
+        self.spec = spec
+        self.register_buffer("m2", kernel_matrix(h_poly).to(device))
+
+    def forward(self, data_u8: torch.Tensor, carry: torch.Tensor):
+        return channelize(data_u8, carry, self.m2, self.spec)
+
+
+class FusedPfbStreamer:
+    """Feed u8 blocks of any size, receive (m, K) channel frames: whole
+    chunks (``spec.chunk_bytes``) go through K3, the residual leads the
+    next call.  Output scale is ``pfb_analyze``'s on normalised samples."""
+
+    def __init__(self, num_channels: int = 64, taps_per_branch: int = 8,
+                 frames_per_chunk: int = 256, *, device: str | torch.device):
+        self.device = torch.device(device)
+        self.spec = default_spec(num_channels, taps_per_branch,
+                                 frames_per_chunk)
+        self.h_poly = design.design_pfb(num_channels, taps_per_branch)
+        self.model = FusedPfb(self.h_poly, self.spec, device=self.device)
+        self.state = init_carry(self.spec, self.device)
+        self._pending = np.zeros(0, dtype=np.uint8)
+
+    def channelize(self, buf: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        data = np.concatenate([self._pending, np.asarray(buf, np.uint8)])
+        usable = len(data) - (len(data) % self.spec.chunk_bytes)
+        self._pending = data[usable:]
+        if usable == 0:
+            z = np.zeros((0, self.spec.out_channels), np.float32)
+            return z, z
+        block = torch.from_numpy(data[:usable]).to(self.device)
+        y_re, y_im, self.state = self.model(block, self.state)
+        return y_re.cpu().numpy(), y_im.cpu().numpy()

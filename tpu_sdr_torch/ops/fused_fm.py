@@ -26,6 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from tpu_sdr_torch import kernels
 from tpu_sdr_torch.models import wbfm as M
 from tpu_sdr_torch.ops import fm as F
 from tpu_sdr_torch.utils import design
@@ -84,14 +85,8 @@ def default_spec(config: WbfmConfig | None = None) -> FusedWbfmSpec:
 def effective_taps(w_hi, w_lo, num_taps: int) -> torch.Tensor:
     """The TPU kernel's split-bf16 banded weights as one set of f32 taps:
     column 0, rows [0, num_taps) of W_hi + W_lo (the sum is exact in f32),
-    i.e. the reversed FIR scaled by 1/255 for samples in the x255 scale.
-    Takes bf16 tensors, or arrays of any dtype numpy can cast to f32."""
-    def f32(w):
-        if torch.is_tensor(w):
-            return w.to(torch.float32)
-        return torch.from_numpy(np.asarray(w, dtype=np.float32))
-
-    return (f32(w_hi) + f32(w_lo))[:num_taps, 0].contiguous()
+    i.e. the reversed FIR scaled by 1/255 for samples in the x255 scale."""
+    return design.split_bf16_sum(w_hi, w_lo)[:num_taps, 0].contiguous()
 
 
 def make_kernel_params(config: WbfmConfig | None = None, *,
@@ -187,28 +182,6 @@ def fm_front_reference(data_u8: torch.Tensor, phase: int, carry: torch.Tensor,
     return z, new
 
 
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype, device,
-           shape: tuple | None = None) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if shape is not None and tuple(t.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _launch_device(t: torch.Tensor) -> bool:
-    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
-    (take the plain version); any other device raises."""
-    if t.device.type == "cuda":
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise ValueError(f"unsupported device {t.device}")
-
-
 def fm_front(data_u8: torch.Tensor, phase: int, carry: torch.Tensor,
              taps: torch.Tensor, decim: int
              ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -220,16 +193,14 @@ def fm_front(data_u8: torch.Tensor, phase: int, carry: torch.Tensor,
                          f"number of {decim}-sample groups of I/Q pairs")
     if not 0 <= phase <= 3:
         raise ValueError(f"fs/4 phase {phase} not in 0..3")
-    if not _launch_device(data_u8):
+    if not kernels.on_cuda(data_u8):
         return fm_front_reference(data_u8, phase, carry, taps, decim)
     dev = data_u8.device
-    _check(data_u8, "data", torch.uint8, dev)
-    _check(carry, "carry", torch.float32, dev, (STATE_ROWS, LANES))
-    _check(taps, "taps", torch.float32, dev, (taps.numel(),))
+    kernels.check_tensor(data_u8, "data", torch.uint8, dev)
+    kernels.check_tensor(carry, "carry", torch.float32, dev, (STATE_ROWS, LANES))
+    kernels.check_tensor(taps, "taps", torch.float32, dev, (taps.numel(),))
     if taps.numel() - 1 > LANES or data_u8.data_ptr() % 2:
         raise ValueError("taps exceed the carry, or data is not 2-byte aligned")
-    from tpu_sdr_torch import kernels
-
     lib = kernels.load().cdll
     z = torch.empty(n // decim, dtype=torch.float32, device=dev)
     new = torch.empty_like(carry)
@@ -274,14 +245,12 @@ def resample(z: torch.Tensor, hist: torch.Tensor, h_poly: torch.Tensor,
     if z.dim() != 1 or z.numel() == 0 or z.numel() % down:
         raise ValueError(f"z of shape {tuple(z.shape)} is not a 1-D whole "
                          f"number of {down}-sample frames")
-    if not _launch_device(z):
+    if not kernels.on_cuda(z):
         return resample_reference(z, hist, h_poly, down)
     dev = z.device
-    _check(z, "z", torch.float32, dev)
-    _check(hist, "hist", torch.float32, dev, (T - 1,))
-    _check(h_poly, "h_poly", torch.float32, dev, (up, T))
-    from tpu_sdr_torch import kernels
-
+    kernels.check_tensor(z, "z", torch.float32, dev)
+    kernels.check_tensor(hist, "hist", torch.float32, dev, (T - 1,))
+    kernels.check_tensor(h_poly, "h_poly", torch.float32, dev, (up, T))
     lib = kernels.load().cdll
     audio = torch.empty(z.numel() // down * up, dtype=torch.float32,
                         device=dev)

@@ -1,11 +1,13 @@
 """Filter-bank designers and chain configuration, without JAX.
 
 Numpy copies of the weight builders that the JAX package keeps in modules
-which import jax (``tpu_sdr/ops/fm.py``: ``make_banded_decim_matrix``,
+which load JAX (``tpu_sdr/ops/fm.py``: ``make_banded_decim_matrix``,
 ``make_split_bf16``, ``make_aligned_poly_matrix``, ``make_polyphase``;
 ``tpu_sdr/models/wbfm.py``: ``WbfmConfig``; ``tpu_sdr/models/wbfm_exact.py``:
-``optimal_settings``), with the same defaults and the same outputs.  The
-prototype filters come from ``tpu_sdr.utils.firdes``, imported as is.
+``optimal_settings``; ``tpu_sdr/ops/channelizer.py``: ``design_pfb``,
+``pfb_mxu_matrices``, ``channel_frequencies``), with the same defaults and
+the same outputs.  The prototype filters come from
+``tpu_sdr.utils.firdes``, imported as is.
 """
 
 from __future__ import annotations
@@ -62,8 +64,10 @@ def decimator_taps(config: WbfmConfig) -> np.ndarray:
         cutoff_frac=config.fir_cutoff_frac)
 
 
-def resampler_poly(config: WbfmConfig) -> np.ndarray:
-    """The audio resampler's prototype filter split into (up, T) phases."""
+def resampler_poly(config) -> np.ndarray:
+    """The audio resampler's prototype filter split into (up, T) phases,
+    for a ``WbfmConfig`` or a ``WidebandConfig`` (the same resampler
+    fields)."""
     h = firdes.resampler_taps(
         config.resample_up, config.resample_down,
         taps_per_phase=config.resample_taps_per_phase,
@@ -95,6 +99,18 @@ def make_split_bf16(W: np.ndarray, scale: float = 255.0
     return W_hi, W_lo
 
 
+def split_bf16_sum(w_hi, w_lo) -> torch.Tensor:
+    """A split-bf16 pair as one f32 tensor ``W_hi + W_lo``: the weights the
+    TPU kernel's two bf16 matmuls apply, for one f32 FMA each.  Takes bf16
+    tensors, or arrays of any dtype numpy can cast to f32."""
+    def f32(w):
+        if torch.is_tensor(w):
+            return w.to(torch.float32)
+        return torch.from_numpy(np.asarray(w, dtype=np.float32))
+
+    return (f32(w_hi) + f32(w_lo)).contiguous()
+
+
 def make_aligned_poly_matrix(h_poly: np.ndarray, up: int, down: int,
                              frames_per_row: int = 1) -> np.ndarray:
     """V for the frame-matmul resampler: ``V[(T-1) + k*down + o_s - t,
@@ -120,6 +136,45 @@ def make_polyphase(h: np.ndarray, up: int) -> np.ndarray:
     hp = np.zeros(up * T, dtype=np.float32)
     hp[:L] = h
     return hp.reshape(T, up).T.copy()
+
+
+def design_pfb(num_channels: int, taps_per_branch: int = 8,
+               atten_db: float = 70.0, cutoff_frac: float = 0.45) -> np.ndarray:
+    """The PFB's (T+1, K) analysis branch matrix: ``G[t, p] = h[tK - p]``
+    of a K*T-tap prototype lowpass cut off at ``cutoff_frac`` of the
+    channel Nyquist (fs / 2K), zero where the index leaves the prototype."""
+    K = num_channels
+    T = taps_per_branch
+    L = K * T
+    h = firdes.lowpass(L, cutoff_frac / (2 * K), 1.0, atten_db) * K
+    G = np.zeros((T + 1, K), dtype=np.float32)
+    for t in range(T + 1):
+        for p in range(K):
+            j = t * K - p
+            if 0 <= j < L:
+                G[t, p] = h[j]
+    return G
+
+
+def pfb_mxu_matrices(h_poly: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Branch filter and channel DFT folded into one matrix:
+    ``M[t*K + p, k] = G[t, p] * exp(-2j pi p k / K)``, so that
+    ``Y[m] = X_win[m] @ M`` with ``X_win[m, t*K + p] = X[m - t, p]``.
+    Returns (M_re, M_im) float32."""
+    G = np.asarray(h_poly, dtype=np.float64)
+    rows, K = G.shape
+    p = np.arange(K)
+    k = np.arange(K)
+    dft = np.exp(-2j * np.pi * np.outer(p, k) / K)  # (p, k)
+    M = (G[:, :, None] * dft[None, :, :]).reshape(rows * K, K)
+    return M.real.astype(np.float32), M.imag.astype(np.float32)
+
+
+def channel_frequencies(num_channels: int, fs: float) -> np.ndarray:
+    """Centre frequency of each channel (k > K/2 wrap negative)."""
+    k = np.arange(num_channels)
+    k = np.where(k <= num_channels // 2, k, k - num_channels)
+    return k * fs / num_channels
 
 
 @dataclass(frozen=True)
