@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``tpu_sdr_torch/csrc`` and drives
-both ported paths through their user entry points:
+the ported paths through their user entry points:
 
 * single station: K1 (``fm_front``, all four fs/4 phases) and K2
   (``fm_resample``) against their plain PyTorch versions on a 25 MB block
@@ -15,7 +15,18 @@ both ported paths through their user entry points:
 * wideband: K3 (``pfb_channelize``) against its plain version on a 25 MB
   block of an 8-station capture at 10.88 Msps (all 64 channels and a
   16-channel column slice), then ``tpu_sdr_torch.apps.multi_fm --fused``
-  on 1.024 s of it, against the plain front.
+  on 1.024 s of it, against the plain front,
+  and the channel-parallel K3 bank on 4 logical shards of the card;
+* sharded: K4 (``halo_pull``) and K5 (``ring_shift``) against their plain
+  versions (bit-equal) on rows of 1 and 4 shards and at the sharded paths'
+  own shapes, then the sharded receiver ``ShardedFusedStreamer`` on a
+  (dp=2, sp=4) mesh of logical shards on ``cuda:0`` (4 stations, two
+  consecutive 25 MB blocks each; K4 ships its carries) against the serial
+  ``FusedWbfmStreamer``, with K1 and K2 held against their plain versions
+  at one of its shards; on a machine with more than one GPU the same path
+  again on a (1, n_gpu) mesh, one shard a card; then the time-sharded
+  channelizer on (1, 4) logical shards (K4 frame halo, an all-to-all of
+  K5 steps) against the unsharded plain one.
 
 Each path's launch counts are zeroed just before it runs and read just
 after; the audio is checked (length, tone SNR, agreement with the plain
@@ -59,6 +70,12 @@ WB_PATH_READS = 32           # x 696,320 bytes = 1.024 s at 10.88 Msps
 WB_READ_BYTES = 696_320
 SNR_STATION_DB = 25.0        # tests/test_wideband.py's bar
 SNR_FRONTS_DB = 70.0         # fused vs plain front, tests/test_wideband.py
+
+# sharded: (dp, sp) mesh of logical shards on one card, 2 stations a row
+SHARD_DP, SHARD_SP = 2, 4
+SHARD_STATIONS = 4
+SHARD_BLOCKS = 2             # consecutive 25 MB blocks per station
+HALO_BIG_FLOATS = 1 << 20    # the multi-MB payload of the K4/K5 checks (4 MB)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -150,10 +167,12 @@ def wideband(dev, flush) -> dict:
     import numpy as np
     import torch
 
-    from tpu_sdr.utils import synth
     from tpu_sdr_torch.apps import multi_fm
     from tpu_sdr_torch.models import wbfm_wideband as WB
     from tpu_sdr_torch.ops import fused_channelizer as FC
+    from tpu_sdr_torch.parallel import channelizer_sharded_fused as CSF
+    from tpu_sdr_torch.parallel import mesh as PM
+    from tpu_sdr_torch.utils import design, synth
 
     config = WB.WidebandConfig(channels=WB_CHANNELS)
     spec = WB.fused_spec(config)
@@ -198,6 +217,29 @@ def wideband(dev, flush) -> dict:
         print(f"pfb_channelize Ko={sp.out_channels}: {s:.1f} dB vs plain, "
               f"max |dy| {e:.3g} (|y| up to "
               f"{float(y_r.abs().max()):.3g}), carry equal", flush=True)
+    del y_re, y_im, y_k, y_r
+
+    # the channel-parallel bank: K3 with a 16-channel block of M2 on each
+    # of 4 logical shards of the card, against the plain full-width K3
+    bank = CSF.make_sharded_pfb_fused(PM.make_mesh(1, 4, devices=[dev] * 4),
+                                      K, config.taps_per_branch,
+                                      spec.frames_per_chunk)
+    before = FC.LAUNCHES["pfb_channelize"]
+    y_re, y_im, c_k = bank(data, carry)
+    m2_full = FC.kernel_matrix(design.design_pfb(
+        K, config.taps_per_branch)).to(dev)  # the bank's design, all of it
+    y_r, c_r = FC.channelize_reference(data, carry, m2_full, spec)
+    torch.cuda.synchronize()
+    require(FC.LAUNCHES["pfb_channelize"] == before + 4,
+            "the channel-parallel bank did not launch K3 on every shard")
+    y_k = torch.cat([y_re, y_im], dim=1)
+    s = snr_db(y_r.cpu().numpy(), y_k.cpu().numpy())
+    require(s >= SNR_KERNEL_DB, f"channel-parallel K3 bank: {s:.1f} dB")
+    require(torch.equal(c_k, c_r), "channel-parallel K3 bank: carry differs")
+    err = max(err, float((y_k - y_r).abs().max()))
+    snrs["bank_4x16"] = s
+    print(f"channel-parallel K3 bank (1, 4) on {dev}: {s:.1f} dB vs the plain "
+          f"full width, carry equal", flush=True)
     del y_re, y_im, y_k, y_r
 
     # ---- (b) the user entry point on 1.024 s of 8 stations ---------------
@@ -261,6 +303,346 @@ def wideband(dev, flush) -> dict:
                      "wall_s": wall, "realtime_x": realtime_x}}
 
 
+def halo_kernels(dev) -> float:
+    """K4 and K5 against their plain versions on ``dev``, bit-equal each
+    time: rows of 1 and 4 shards of a 2 KB carry block and a 4 MB buffer,
+    with and without the left edge, K4 forced on the one-shard row; then
+    the exchanges at the shapes the sharded paths give them: the end-state
+    carries (4 shards of 2 stations x (4, 128) f32 and the edge), the
+    resampler tails (4 x 2 x 47 f32, a ragged 376 B), the channelizer's
+    frame halo (8 x 64 of a 3,133,440-sample shard) and its all-to-all
+    (4 shards of (4, 2, 48960, 16) f32, three K5 steps).  Returns the max
+    |error|."""
+    import numpy as np
+    import torch
+
+    from tpu_sdr_torch.parallel import cuda_halo as CH
+    from tpu_sdr_torch.parallel import halo as H
+
+    rng = np.random.default_rng(7)
+
+    def row(n, numel):
+        return [torch.from_numpy(rng.standard_normal(numel).astype(
+            np.float32)).to(dev) for _ in range(n)]
+
+    err = 0.0
+
+    def same(name, got, exp):
+        nonlocal err
+        require(all(torch.equal(g, x) for g, x in zip(got, exp)),
+                f"{name} differs from its plain version")
+        err = max(err, max(float((g - x).abs().max())
+                           for g, x in zip(got, exp)))
+
+    for numel in (512, HALO_BIG_FLOATS):
+        edge = row(1, numel)[0]
+        for n in (1, 4):
+            xs = row(n, numel)
+            got = {"ring_shift": (CH.ring_shift_cuda(xs), H.ring_shift(xs))}
+            for e in (None, edge):
+                got[f"halo_pull edge={e is not None}"] = (
+                    CH.pull_left_halo_cuda(xs, numel, e, force_kernel=True),
+                    H.pull_left_halo(xs, numel, e))
+            torch.cuda.synchronize()
+            for name, (g, x) in got.items():
+                same(f"{name} on {n} shards of {4 * numel} B", g, x)
+            forced = " (K4 forced)" if n == 1 else ""
+            print(f"halo_pull{forced}, ring_shift: {n} shard(s) of "
+                  f"{4 * numel} B, with and without the edge: bit-equal to "
+                  f"the plain versions", flush=True)
+
+    # the sharded paths' own shapes
+    for what, numel, halo, with_edge in (
+            ("end-state carries", 2 * 512, 2 * 512, True),
+            ("resampler tails", 2 * 47, 2 * 47, True),
+            ("channelizer frame halo", BLOCK_COMPLEX // SHARD_SP, 8 * 64,
+             False)):
+        xs = row(SHARD_SP, numel)
+        edge = row(1, halo)[0] if with_edge else None
+        same(f"halo_pull ({what})", CH.pull_left_halo_cuda(xs, halo, edge),
+             H.pull_left_halo(xs, halo, edge))
+        print(f"halo_pull ({what}): {SHARD_SP} shards of {4 * numel} B, a "
+              f"{4 * halo} B halo: bit-equal to the plain version",
+              flush=True)
+    m_loc = BLOCK_COMPLEX // SHARD_SP // 64
+    xs = [x.reshape(SHARD_SP, 2, m_loc, 16)
+          for x in row(SHARD_SP, SHARD_SP * 2 * m_loc * 16)]
+    steps = [torch.cat([x[i + 1:], x[:i]]) for i, x in enumerate(xs)]
+    same("ring_shift (all-to-all step)", CH.ring_shift_cuda(steps),
+         H.ring_shift(steps))
+    got = CH.all_to_all(xs)
+    require(all(torch.equal(got[j][i], xs[i][j]) for i in range(SHARD_SP)
+                for j in range(SHARD_SP)), "all_to_all misplaced a block")
+    print(f"ring_shift (all-to-all step): {SHARD_SP} shards of "
+          f"{steps[0].numel() * 4} B: bit-equal to the plain version; the "
+          f"all-to-all of {xs[0].numel() * 4} B a shard places every block",
+          flush=True)
+    return err
+
+
+def sharded_path(devices, dp: int, sp: int, blocks, serial):
+    """``ShardedFusedStreamer`` on a (dp, sp) mesh of ``devices`` over the
+    consecutive ``blocks``, launch counts zeroed before and read after,
+    held against the ``serial`` audio of the per-station streamers.
+    Returns (numbers, audio)."""
+    import numpy as np
+    import torch
+
+    from tpu_sdr_torch.ops import fused_fm as FF
+    from tpu_sdr_torch.parallel import cuda_halo as CH
+    from tpu_sdr_torch.parallel import mesh as PM
+    from tpu_sdr_torch.parallel import wbfm_sharded_fused as WSF
+    from tpu_sdr_torch.utils import synth
+
+    mesh = PM.make_mesh(dp, sp, devices=devices)
+    streamer = WSF.ShardedFusedStreamer(mesh, blocks[0].shape[0])
+    FF.reset_launch_counts()
+    CH.reset_launch_counts()
+    t0 = time.monotonic()
+    got = np.concatenate([streamer.demodulate(b) for b in blocks], axis=1)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {**FF.LAUNCHES, "halo_pull": CH.LAUNCHES["halo_pull"]}
+    for name, count in launches.items():
+        require(count > 0, f"the sharded path never launched {name}")
+    require(got.shape == serial.shape,
+            f"sharded audio {got.shape}, serial {serial.shape}")
+    require(np.allclose(got, serial, rtol=1e-4, atol=1e-5),
+            f"sharded vs serial: max |d| {np.abs(got - serial).max()}")
+    s = snr_db(serial, got)
+    require(s >= SNR_KERNEL_DB, f"sharded vs serial: {s:.1f} dB")
+    tone = synth.tone_snr(got[0].astype(np.float64), 1_000.0, 32_000,
+                          skip=1500)
+    require(tone >= SNR_TONE_DB, f"sharded station 0 tone {tone:.1f} dB")
+    n = sum(b.shape[1] // 2 for b in blocks) * blocks[0].shape[0]
+    print(f"sharded path ({dp}, {sp}) on {sorted({str(d) for d in devices})}"
+          f": {got.shape[0]} stations x {got.shape[1]} samples, vs serial "
+          f"{s:.1f} dB (max |d| {np.abs(got - serial).max():.3g}), station 0 "
+          f"tone {tone:.1f} dB, launches {launches}, wall {wall:.3f} s = "
+          f"{n / wall / 1e6:.3f} Msps", flush=True)
+    return {"mesh": [dp, sp], "stations": got.shape[0],
+            "samples": got.shape[1], "vs_serial_db": s, "tone_db": tone,
+            "launches": launches, "wall_s": wall}, got
+
+
+def shard_kernels(dev, block, got, shard: int = 2) -> None:
+    """K1 and K2 at one shard of the (dp, sp) path's first block: dp row 0
+    (stations 0 and 1), time shard ``shard``, from the state K4 brings it.
+    Each is held against its plain version on the same bytes and state,
+    and K2's audio against the path's own audio of that shard."""
+    import numpy as np
+    import torch
+
+    from tpu_sdr_torch.ops import fused_fm as FF
+    from tpu_sdr_torch.parallel import cuda_halo as CH
+    from tpu_sdr_torch.parallel import halo as H
+    from tpu_sdr_torch.parallel import wbfm_sharded_fused as WSF
+    from tpu_sdr_torch.utils import design
+    from tpu_sdr_torch.utils.design import WbfmConfig
+
+    spec = FF.default_spec()
+    T = spec.taps_per_phase
+    taps, h_poly = FF.make_kernel_params(device=dev)
+    A, div = (torch.from_numpy(a).to(dev) for a in WSF.end_state_matrix(
+        design.decimator_taps(WbfmConfig()), spec.decim))
+    n_bytes = block.shape[1] // SHARD_SP
+    row = [torch.from_numpy(np.ascontiguousarray(
+        block[0:2, s * n_bytes:(s + 1) * n_bytes])).to(dev)
+        for s in range(SHARD_SP)]
+    ends = [((b[:, -256:].to(torch.float32) * 2.0 - 255.0) @ A / div
+             ).reshape(-1) for b in row]
+    edge = WSF.initial_carry(2, device=dev)[0].reshape(-1)
+    recv = CH.pull_left_halo_cuda(ends, ends[0].numel(), edge)
+    require(all(torch.equal(r, p) for r, p in zip(
+        recv, H.pull_left_halo(ends, ends[0].numel(), edge))),
+        "halo_pull of the end states differs from its plain version")
+    worst = []
+    for j in range(2):
+        state = recv[shard].reshape(2, FF.STATE_ROWS, FF.LANES)[j]
+        left = recv[shard - 1].reshape(2, FF.STATE_ROWS, FF.LANES)[j]
+        z_k, _ = FF.fm_front(row[shard][j], 0, state, taps, spec.decim)
+        z_r, _ = FF.fm_front_reference(row[shard][j], 0, state, taps,
+                                       spec.decim)
+        z_left, _ = FF.fm_front(row[shard - 1][j], 0, left, taps, spec.decim)
+        hist = z_left[-(T - 1):].contiguous()
+        a_k, _ = FF.resample(z_k, hist, h_poly, spec.down)
+        a_r, _ = FF.resample_reference(z_k, hist, h_poly, spec.down)
+        torch.cuda.synchronize()
+        s_front = snr_db(z_r.cpu().numpy(), z_k.cpu().numpy())
+        s_rs = snr_db(a_r.cpu().numpy(), a_k.cpu().numpy())
+        require(s_front >= SNR_KERNEL_DB and s_rs >= SNR_KERNEL_DB,
+                f"station {j} shard {shard}: fm_front {s_front:.1f} dB, "
+                f"fm_resample {s_rs:.1f} dB against the plain versions")
+        count = a_k.numel()
+        path = got[j, shard * count:(shard + 1) * count]
+        require(np.allclose(a_k.cpu().numpy(), path, rtol=1e-4, atol=1e-5),
+                f"station {j} shard {shard}: K2's audio differs from the "
+                f"path's")
+        worst.append((s_front, s_rs))
+    print(f"shard {shard} of dp row 0 from its K4-received state: fm_front "
+          f"{min(w[0] for w in worst):.1f} dB, fm_resample "
+          f"{min(w[1] for w in worst):.1f} dB vs plain, and K2's audio "
+          f"matches the path's", flush=True)
+
+
+def channelizer_path(dev, flush) -> dict:
+    """The time-sharded channelizer (``make_sharded_channelizer``, K=64,
+    8 taps a branch) on a (1, 4) mesh of logical shards of ``dev``, over a
+    25 MB-block's worth of samples (12,533,760 complex, a tone 0.05 of a
+    channel above every channel centre), launch counts zeroed before and
+    read after; held against the unsharded plain PFB + demod, and each
+    channel's steady demod against its tone's phase step."""
+    import torch
+
+    from tpu_sdr_torch.ops import channelizer as chan
+    from tpu_sdr_torch.ops import fm as F
+    from tpu_sdr_torch.parallel import channelizer_sharded as CS
+    from tpu_sdr_torch.parallel import cuda_halo as CH
+    from tpu_sdr_torch.parallel import mesh as PM
+    from tpu_sdr_torch.utils import design
+
+    K, T = 64, 8
+    n = BLOCK_COMPLEX
+    gen = torch.Generator(device=dev).manual_seed(5)
+    t = torch.arange(n, dtype=torch.float64, device=dev)
+    x = 0.05 * torch.randn(n, dtype=torch.complex128, device=dev,
+                           generator=gen)
+    for k in range(K):
+        x += torch.exp(2j * torch.pi * ((k + 0.05) / K) * t)
+    re, im = x.real.to(torch.float32), x.imag.to(torch.float32)
+    del t, x
+    mesh = PM.make_mesh(1, SHARD_SP, devices=[dev] * SHARD_SP)
+    chain = CS.make_sharded_channelizer(mesh, K, taps_per_branch=T)
+    m2 = chan.packed_matrix(design.design_pfb(K, T), device=dev)
+    zero = torch.zeros(T, K, device=dev)
+
+    def unsharded():
+        y_re, y_im, _ = chan.pfb_analyze(re, im, m2, chan.PfbState(zero, zero))
+        return F.quadrature_demod(y_re.T, y_im.T, F.QuadState(
+            torch.ones(K, device=dev), torch.zeros(K, device=dev)))[0]
+
+    CH.reset_launch_counts()
+    t0 = time.monotonic()
+    got = chain(re, im)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(CH.LAUNCHES)
+    for name, count in launches.items():
+        require(count > 0, f"the channelizer path never launched {name}")
+    exp = unsharded()
+    require(got.shape == exp.shape == (K, n // K),
+            f"channelizer demod {tuple(got.shape)}, expected (K, n/K)")
+    # phases in units of pi, compared modulo 2
+    err = float(torch.remainder(got - exp + 1, 2).sub(1).abs().max())
+    require(err <= 2e-3, f"sharded vs unsharded channelizer: {err:.3g}")
+    step = float((got[:, 100:].mean(dim=1) - 0.1).abs().max())
+    require(step <= 1e-3, f"a channel's tone step is off by {step:.3g}")
+    ms = device_ms({"channelizer_sharded": lambda: chain(re, im),
+                    "channelizer_unsharded": unsharded}, flush=flush)
+    print(f"channelizer path (1, {SHARD_SP}) on {dev}: {K} channels x "
+          f"{n // K} frames, vs unsharded max |d phase| {err:.3g} pi, tone "
+          f"steps within {step:.3g} of 0.1, launches {launches}, wall "
+          f"{wall:.3f} s", flush=True)
+    return {"launches": launches, "err": err, "ms": ms, "wall_s": wall}
+
+
+def sharded(dev, flush, u8_two) -> dict:
+    """The sharded paths: (a) K4/K5 against their plain versions, (b) the
+    (dp=2, sp=4) receiver on logical shards of ``dev`` against the serial
+    chain, with K1/K2 held at one of its shards, (c) the peer path across
+    cards where there are several, (d) the time-sharded channelizer, (e)
+    device timings.  ``u8_two``: station 0's two consecutive blocks."""
+    import numpy as np
+    import torch
+
+    from tpu_sdr_torch.ops import fused_fm as FF
+    from tpu_sdr_torch.parallel import cuda_halo as CH
+    from tpu_sdr_torch.parallel import halo as H
+    from tpu_sdr_torch.parallel import mesh as PM
+    from tpu_sdr_torch.parallel import wbfm_sharded_fused as WSF
+
+    # ---- (a) K4/K5 against their plain versions --------------------------
+    err = halo_kernels(dev)
+
+    # ---- (b) the main path: ShardedFusedStreamer on (2, 4) ---------------
+    n = BLOCK_COMPLEX
+    rng = np.random.default_rng(2024)
+    rows = [u8_two] + [rng.integers(0, 256, 2 * SHARD_BLOCKS * n,
+                                    dtype=np.uint8)
+                       for _ in range(SHARD_STATIONS - 1)]
+    blocks = [np.stack([r[2 * k * n:2 * (k + 1) * n] for r in rows])
+              for k in range(SHARD_BLOCKS)]
+    del rows
+    serial = []
+    for i in range(SHARD_STATIONS):
+        st = FF.FusedWbfmStreamer(device=dev)
+        serial.append(np.concatenate([st.demodulate(b[i]) for b in blocks]))
+    serial = np.stack(serial)
+    path, got = sharded_path([dev] * (SHARD_DP * SHARD_SP), SHARD_DP,
+                             SHARD_SP, blocks, serial)
+    shard_kernels(dev, blocks[0], got)
+
+    # ---- (c) the peer path: one shard a card ----------------------------
+    n_gpu = torch.cuda.device_count()
+    if n_gpu > 1:
+        peer, _ = sharded_path([torch.device("cuda", i) for i in range(n_gpu)],
+                               1, n_gpu, blocks, serial)
+    else:
+        peer = None
+        print("peer path: not run (1 CUDA device; the (1, n_gpu) mesh of "
+              "one shard a card needs at least 2)", flush=True)
+    del blocks, serial, got
+
+    # ---- (d) the time-sharded channelizer: K4 halo, K5 all-to-all --------
+    chan = channelizer_path(dev, flush)
+
+    # ---- (e) device timings ----------------------------------------------
+    # K4 at the main path's two exchanges a row (4 shards of (2, 4, 128)
+    # end states with the edge; 4 of (2, 47) resampler tails), K5 at the
+    # channelizer's first all-to-all step, both also at 4 MB a shard
+    def row(n_shards, numel):
+        return [torch.randn(numel, device=dev) for _ in range(n_shards)]
+
+    ends, edge = row(SHARD_SP, 2 * 512), row(1, 2 * 512)[0]
+    tails, tail_edge = row(SHARD_SP, 2 * 47), row(1, 2 * 47)[0]
+    step = row(SHARD_SP, 3 * 2 * (n // SHARD_SP // 64) * 16)
+    big, big_edge = row(SHARD_SP, HALO_BIG_FLOATS), row(1, HALO_BIG_FLOATS)[0]
+    # the sp=4 step on logical shards and the unsharded chain on one
+    # station's 25 MB block
+    data = torch.from_numpy(u8_two[:2 * n]).to(dev)
+    taps, h_poly = FF.make_kernel_params(device=dev)
+    spec = FF.default_spec()
+    carry, hist = FF.init_carry(dev), torch.zeros(spec.taps_per_phase - 1,
+                                                  device=dev)
+    ke, rs = WSF.initial_carry(1, device=dev)
+    chain = WSF.make_sharded_wbfm_fused(
+        PM.make_mesh(1, SHARD_SP, devices=[dev] * SHARD_SP), carry_io=True)
+    shards = chain.shard(data[None])
+    ms = device_ms({
+        "halo_pull_plain": lambda: H.pull_left_halo(ends, 1024, edge),
+        "halo_pull": lambda: CH.pull_left_halo_cuda(ends, 1024, edge),
+        "halo_pull_tails_plain": lambda: H.pull_left_halo(tails, 94,
+                                                          tail_edge),
+        "halo_pull_tails": lambda: CH.pull_left_halo_cuda(tails, 94,
+                                                          tail_edge),
+        "ring_shift_plain": lambda: H.ring_shift(step),
+        "ring_shift": lambda: CH.ring_shift_cuda(step),
+        "halo_pull_4mb_plain": lambda: H.pull_left_halo(
+            big, HALO_BIG_FLOATS, big_edge),
+        "halo_pull_4mb": lambda: CH.pull_left_halo_cuda(
+            big, HALO_BIG_FLOATS, big_edge),
+        "ring_shift_4mb_plain": lambda: H.ring_shift(big),
+        "ring_shift_4mb": lambda: CH.ring_shift_cuda(big),
+        "sharded_sp4": lambda: chain.fn(shards, ke, rs),
+        "unsharded": lambda: FF.demodulate_fused(data, 0, carry, hist, taps,
+                                                 h_poly, spec),
+    }, flush=flush)
+    ms.update(chan["ms"])
+    return {"err": err, "path": path, "peer": peer, "chan": chan, "ms": ms,
+            "halo_us": (ms["halo_pull"] + ms["halo_pull_tails"]) * 1e3,
+            "sharded_overhead_ratio": ms["sharded_sp4"] / ms["unsharded"]}
+
+
 def main() -> int:
     import torch
 
@@ -271,10 +653,9 @@ def main() -> int:
 
     import numpy as np
 
-    from tpu_sdr import native
-    from tpu_sdr.utils import synth
     from tpu_sdr_torch import kernels
     from tpu_sdr_torch.ops import fused_fm as FF
+    from tpu_sdr_torch.utils import synth
 
     smi = gpu_name_and_power()
     print(smi, flush=True)
@@ -299,8 +680,13 @@ def main() -> int:
     taps, h_poly = FF.make_kernel_params(device=dev)
     require(BLOCK_COMPLEX % spec.chunk_complex == 0, "block is not whole chunks")
 
-    u8, _ = synth.synth_wbfm_u8(BLOCK_COMPLEX, capture_rate=REALTIME_SPS)
-    u8 = np.ascontiguousarray(u8, dtype=np.uint8)
+    # two consecutive blocks of one station (the sharded path streams
+    # both); the first is the single-station block, byte for byte the
+    # capture of BLOCK_COMPLEX samples
+    u8_two, _ = synth.synth_wbfm_u8(SHARD_BLOCKS * BLOCK_COMPLEX,
+                                    capture_rate=REALTIME_SPS)
+    u8_two = np.ascontiguousarray(u8_two, dtype=np.uint8)
+    u8 = u8_two[:2 * BLOCK_COMPLEX]
     data = torch.from_numpy(u8).to(dev)
 
     # ---- kernel phase: each kernel against its plain version ------------
@@ -338,13 +724,16 @@ def main() -> int:
           flush=True)
 
     # ---- path phase: the user entry point on a 10.24 s station --------
-    # set-up the CLI pays once per checkout: the host library's first build
-    t0 = time.monotonic()
-    print(f"host s16 library: native={native.available()}, set-up "
-          f"{time.monotonic() - t0:.3f} s", flush=True)
     n_path = PATH_CHUNKS * spec.chunk_complex
     with tempfile.TemporaryDirectory() as tmp:
+        # set-up the CLI pays once per checkout (the host s16 library's
+        # first build): one chunk through it first
         path = os.path.join(tmp, "station.u8")
+        u8[: spec.chunk_bytes].tofile(path)
+        t0 = time.monotonic()
+        run_app(["--file", path, "--mode", "fused"])
+        print(f"CLI set-up (one chunk): {time.monotonic() - t0:.3f} s",
+              flush=True)
         u8[: 2 * n_path].tofile(path)
         FF.reset_launch_counts()
         t0 = time.monotonic()
@@ -387,15 +776,28 @@ def main() -> int:
     # ---- the wideband path: K3 and multi_fm --fused ---------------------
     wb = wideband(dev, flush_buf.zero_)
     ms.update(wb["ms"])
+
+    # ---- the sharded paths: K4, K5, ShardedFusedStreamer, channelizer ----
+    sh = sharded(dev, flush_buf.zero_, u8_two)
+    ms.update(sh["ms"])
     for name, t in ms.items():
-        print(f"time {name}: {t:.4f} ms = {BLOCK_COMPLEX / t / 1e3:.1f} Msps "
-              f"({smi})", flush=True)
+        rate = ("" if name.startswith(("halo_pull", "ring_shift")) else
+                f" = {BLOCK_COMPLEX / t / 1e3:.1f} Msps")
+        print(f"time {name}: {t:.4f} ms{rate} ({smi})", flush=True)
+    print(f"halo cost (the sp={SHARD_SP} step's two K4 exchanges): "
+          f"{sh['halo_us']:.2f} us; sharded sp={SHARD_SP} / unsharded step: "
+          f"{sh['sharded_overhead_ratio']:.4f} ({smi})", flush=True)
     print("metrics " + json.dumps({
         "card": smi, "block_complex": BLOCK_COMPLEX, "reps": REPS, "ms": ms,
         "snr_fm_front_db": snrs, "snr_fm_resample_db": s_rs,
         "path": {"complex": n_path, "tone_db": tone, "vs_fir_db": s_fir,
                  "wall_s": app_s, "realtime_x": n_path / app_s / REALTIME_SPS},
         "snr_pfb_channelize_db": wb["snr_db"], "wideband_path": wb["path"],
+        "sharded_path": sh["path"], "peer_path": sh["peer"],
+        "channelizer_path": {k: v for k, v in sh["chan"].items()
+                             if k != "ms"},
+        "halo_us": sh["halo_us"],
+        "sharded_overhead_ratio": sh["sharded_overhead_ratio"],
     }), flush=True)
 
     print(json.dumps({"kernels": [
@@ -414,6 +816,18 @@ def main() -> int:
          "replaces": "tpu_sdr/ops/pallas_channelizer.py:92",
          "launches": wb["launches"], "max_abs_err": wb["err"],
          "ms": ms["pfb_channelize"], "plain_ms": ms["pfb_channelize_plain"]},
+        {"name": "halo_pull", "route": "cuda",
+         "source": "tpu_sdr_torch/csrc/halo.cu",
+         "replaces": "tpu_sdr/parallel/pallas_halo.py:42",
+         "launches": sh["path"]["launches"]["halo_pull"],
+         "max_abs_err": sh["err"],
+         "ms": ms["halo_pull"], "plain_ms": ms["halo_pull_plain"]},
+        {"name": "ring_shift", "route": "cuda",
+         "source": "tpu_sdr_torch/csrc/halo.cu",
+         "replaces": "tpu_sdr/parallel/pallas_halo.py:145",
+         "launches": sh["chan"]["launches"]["ring_shift"],
+         "max_abs_err": sh["err"],
+         "ms": ms["ring_shift"], "plain_ms": ms["ring_shift_plain"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

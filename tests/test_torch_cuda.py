@@ -14,11 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_sdr.utils import synth
 from tpu_sdr_torch.models import wbfm_wideband as WB
 from tpu_sdr_torch.ops import fused_channelizer as FC
 from tpu_sdr_torch.ops import fused_fm as FF
-from tpu_sdr_torch.utils import design
+from tpu_sdr_torch.utils import design, synth
 
 torch.set_num_threads(1)
 
@@ -224,3 +223,158 @@ def test_cuda_wideband_streamer_matches_plain(wideband_capture, dev):
     plain = WB.WidebandStreamer(config, device=dev).demodulate(wideband_capture)
     assert _snr_db(plain, fused) >= 70.0
     assert synth.tone_snr(fused[0], 1_000.0, 32_000, skip=400) >= 25.0
+
+
+# ---- K4 and K5: the halo exchange and the ring shift ----------------------
+
+def _row(dev, n, dtype, numel=1000, seed=0):
+    """n shards of ``numel`` entries: f32 (400, ...) rows or raw bytes."""
+    rng = np.random.default_rng(seed + n)
+    if dtype == torch.uint8:
+        data = rng.integers(0, 256, (n, numel), dtype=np.uint8)
+    else:
+        data = rng.standard_normal((n, numel // 4, 4)).astype(np.float32)
+    return [torch.from_numpy(d).to(dev) for d in data]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.uint8])
+@pytest.mark.parametrize("with_edge", [False, True])
+@pytest.mark.parametrize("n", [1, 4, 8])
+def test_halo_pull_kernel_matches_plain(dev, n, with_edge, dtype):
+    from tpu_sdr_torch.parallel import cuda_halo as CH
+    from tpu_sdr_torch.parallel import halo as H
+
+    row = _row(dev, n, dtype)
+    halo = 3 if dtype == torch.uint8 else 7
+    edge = (_row(dev, 1, dtype, seed=5)[0][:halo].contiguous() if with_edge
+            else None)
+    before = CH.LAUNCHES["halo_pull"]
+    got = CH.pull_left_halo_cuda(row, halo, edge, force_kernel=True)
+    exp = H.pull_left_halo(row, halo, edge)
+    torch.cuda.synchronize()
+    assert CH.LAUNCHES["halo_pull"] == before + 1
+    for g, e in zip(got, exp):
+        assert g.dtype == dtype and torch.equal(g, e)
+    if n == 1:  # without force_kernel the one-shard exchange is vacuous
+        (vac,) = CH.pull_left_halo_cuda(row, halo, edge)
+        assert CH.LAUNCHES["halo_pull"] == before + 1
+        assert torch.equal(vac, exp[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.uint8])
+@pytest.mark.parametrize("n", [1, 4, 8])
+def test_ring_shift_kernel_matches_plain(dev, n, dtype):
+    from tpu_sdr_torch.parallel import cuda_halo as CH
+    from tpu_sdr_torch.parallel import halo as H
+
+    row = _row(dev, n, dtype, numel=(1 << 20) + 12)  # a ragged 1 MB tail
+    before = CH.LAUNCHES["ring_shift"]
+    got = CH.ring_shift_cuda(row)
+    exp = H.ring_shift(row)
+    torch.cuda.synchronize()
+    assert CH.LAUNCHES["ring_shift"] == before + 1
+    for g, e, x in zip(got, exp, row):
+        assert torch.equal(g, e) and g.data_ptr() != x.data_ptr()
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_all_to_all_on_the_card_matches_plain(dev, n):
+    """The ring all-to-all: n - 1 launches of K5, equal to the plain ring's
+    result on the CPU."""
+    from tpu_sdr_torch.parallel import cuda_halo as CH
+
+    row = [torch.from_numpy(r).reshape(n, 2, 5, 3) for r in
+           np.random.default_rng(n).standard_normal(
+               (n, n * 30)).astype(np.float32)]
+    before = CH.LAUNCHES["ring_shift"]
+    got = CH.all_to_all([r.to(dev) for r in row])
+    assert CH.LAUNCHES["ring_shift"] == before + n - 1
+    for g, e in zip(got, CH.all_to_all(row)):
+        assert all(a.device == dev and torch.equal(a.cpu(), b)
+                   for a, b in zip(g, e))
+
+
+def test_sharded_channelizers_on_the_card(dev):
+    """The time-sharded channelizer (K4 frame halo, K5 all-to-all) and the
+    channel-parallel one (K3 a channel block) on logical shards of one
+    card, each against the same chain on CPU shards."""
+    from tpu_sdr_torch.parallel import channelizer_sharded as CS
+    from tpu_sdr_torch.parallel import channelizer_sharded_fused as CSF
+    from tpu_sdr_torch.parallel import cuda_halo as CH
+    from tpu_sdr_torch.parallel import mesh as PM
+
+    K, T, sp = 32, 6, 4
+    rng = np.random.default_rng(6)
+    t = np.arange(K * 64 * sp)
+    z = sum(np.exp(2j * np.pi * (k + 0.05) / K * t) for k in range(K))
+    z = z + 0.05 * (rng.standard_normal(t.size) + 1j * rng.standard_normal(
+        t.size))
+    x = z.real.astype(np.float32), z.imag.astype(np.float32)
+    u8 = rng.integers(0, 256, 2 * 64 * 64 * 2, dtype=np.uint8)
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        mesh = PM.make_mesh(1, sp, devices=[d] * sp)
+        CH.reset_launch_counts()
+        FC.reset_launch_counts()
+        demod = CS.make_sharded_channelizer(mesh, K, taps_per_branch=T)(*x)
+        bank = CSF.make_sharded_pfb_fused(mesh, 64, 8, 64)
+        y_re, y_im, carry = CSF.sharded_pfb_fused_apply(bank, u8)
+        launched = (CH.LAUNCHES["halo_pull"], CH.LAUNCHES["ring_shift"],
+                    FC.LAUNCHES["pfb_channelize"])
+        assert launched == ((2, sp - 1, sp) if d.type == "cuda"
+                            else (0, 0, 0))
+        outs[d.type] = [t.cpu() for t in (demod, y_re, y_im, carry)]
+    gpu, cpu = outs["cuda"], outs["cpu"]
+    # a phase (in units of pi) compared modulo 2
+    assert float(torch.remainder(gpu[0] - cpu[0] + 1, 2).sub(1).abs().max()
+                 ) <= 2e-3
+    assert _snr_db(cpu[1], gpu[1]) >= 100.0
+    assert _snr_db(cpu[2], gpu[2]) >= 100.0
+    assert torch.equal(gpu[3], cpu[3])
+
+
+def test_halo_pull_kernel_unaligned_bytes(dev):
+    """Sources 1 byte off 16-byte alignment take the byte path."""
+    from tpu_sdr_torch.parallel import cuda_halo as CH
+    from tpu_sdr_torch.parallel import halo as H
+
+    buf = torch.arange(4 * 4097, device=dev).to(torch.uint8)
+    row = [buf[1 + s * 4097:(s + 1) * 4097] for s in range(4)]
+    got = CH.pull_left_halo_cuda(row, 33)
+    for g, e in zip(got, H.pull_left_halo(row, 33)):
+        assert torch.equal(g, e)
+
+
+def test_enable_peer_raises_for_a_missing_peer(dev):
+    from tpu_sdr_torch.parallel import cuda_halo as CH
+
+    with pytest.raises(RuntimeError, match="cannot read"):
+        CH.enable_peer(0, torch.cuda.device_count() + 7)
+    CH.enable_peer(0, 0)  # one device needs nothing
+
+
+def test_sharded_fused_chain_on_the_card(dev):
+    """The fused sharded chain on a (2, 2) mesh of logical shards on one
+    card against the same chain on CPU shards; 'auto' runs K4."""
+    from tpu_sdr_torch.parallel import cuda_halo as CH
+    from tpu_sdr_torch.parallel import mesh as PM
+    from tpu_sdr_torch.parallel import wbfm_sharded_fused as WSF
+
+    rng = np.random.default_rng(4)
+    blocks = rng.integers(0, 256, (4, 2 * 2 * SPEC.chunk_complex),
+                          dtype=np.uint8)
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        CH.reset_launch_counts()
+        FF.reset_launch_counts()
+        streamer = WSF.ShardedFusedStreamer(
+            PM.make_mesh(2, 2, devices=[d] * 4), 4)
+        outs[d.type] = np.concatenate([streamer.demodulate(blocks),
+                                       streamer.demodulate(blocks[::-1])],
+                                      axis=1)
+        launched = (CH.LAUNCHES["halo_pull"], FF.LAUNCHES["fm_front"],
+                    FF.LAUNCHES["fm_resample"])
+        assert all(c > 0 for c in launched) == (d.type == "cuda")
+    assert outs["cuda"].shape == outs["cpu"].shape
+    np.testing.assert_allclose(outs["cuda"], outs["cpu"], rtol=1e-4,
+                               atol=1e-5)

@@ -13,5 +13,6 @@ chain (``models.wbfm``) and as the fused two-kernel chain
 (``ops.fused_fm``), behind ``python -m tpu_sdr_torch.apps.simple_fm``; and
 the wideband multi-station path (``models.wbfm_wideband``) with the plain
 or the K3 channelizer (``ops.channelizer``, ``ops.fused_channelizer``),
-behind ``python -m tpu_sdr_torch.apps.multi_fm``.
+behind ``python -m tpu_sdr_torch.apps.multi_fm``; and the sharded (dp, sp)
+receive chains with the K4/K5 halo exchange (``parallel``).
 """

@@ -13,9 +13,16 @@ former normalised, the latter x255; ``fused_channelizer`` converts between
 the two), the stacked discriminator and resampler states keep their
 station axis, and the weights come from the JAX ``WidebandParams`` and the
 Pallas ``(M2_hi, M2_lo)`` pair.
+
+The sharded chains' streaming carries keep the JAX shapes: the fused
+chain's ``(kernel_edge (stations, 4, 128), rs_edge (stations, T-1))`` and
+the float chain's ``XlaStreamCarry``; a ``ShardedPallasStreamer`` hands its
+carries to a ``ShardedFusedStreamer`` and back.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -25,7 +32,10 @@ from tpu_sdr_torch.models import wbfm_wideband as WB
 from tpu_sdr_torch.ops import channelizer as chan
 from tpu_sdr_torch.ops import fm as F
 from tpu_sdr_torch.ops.fused_fm import FusedWbfmSpec, effective_taps
-from tpu_sdr_torch.utils.design import split_bf16_sum
+from tpu_sdr_torch.parallel.mesh import Mesh
+from tpu_sdr_torch.parallel.wbfm_sharded import XlaStreamCarry
+from tpu_sdr_torch.parallel.wbfm_sharded_fused import ShardedFusedStreamer
+from tpu_sdr_torch.utils.design import WbfmConfig, split_bf16_sum
 
 
 def poly_from_matrix(V, up: int, down: int) -> torch.Tensor:
@@ -141,3 +151,53 @@ def wideband_state_to_jax(state: WB.WidebandState):
     return ((n(state.pfb.hist_re), n(state.pfb.hist_im)),
             (n(state.quad.pre_re), n(state.quad.pre_im)),
             (n(state.resamp.hist),))
+
+
+def config_from_jax(config) -> WbfmConfig:
+    """A JAX ``WbfmConfig`` -> the port's (the same fields)."""
+    return WbfmConfig(**{f.name: getattr(config, f.name)
+                         for f in dataclasses.fields(WbfmConfig)})
+
+
+def sharded_carry_from_jax(kernel_edge, rs_edge, *,
+                           device: str | torch.device
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The JAX fused sharded chain's ``(kernel_edge, rs_edge)`` -> the
+    port's, on ``device``."""
+    return _tensor(kernel_edge, device), _tensor(rs_edge, device)
+
+
+def sharded_carry_to_jax(kernel_edge: torch.Tensor, rs_edge: torch.Tensor
+                         ) -> tuple[np.ndarray, np.ndarray]:
+    return kernel_edge.cpu().numpy(), rs_edge.cpu().numpy()
+
+
+def xla_carry_from_jax(carry, *, device: str | torch.device
+                       ) -> XlaStreamCarry:
+    """A JAX ``XlaStreamCarry`` -> the port's, on ``device``."""
+    return XlaStreamCarry(*(_tensor(c, device) for c in carry))
+
+
+def xla_carry_to_jax(carry: XlaStreamCarry) -> tuple[np.ndarray, ...]:
+    """The port's ``XlaStreamCarry`` -> numpy in the JAX field order."""
+    return tuple(c.cpu().numpy() for c in carry)
+
+
+def sharded_streamer_from_jax(streamer, mesh: Mesh) -> ShardedFusedStreamer:
+    """A mid-stream JAX ``ShardedPallasStreamer`` -> a
+    ``ShardedFusedStreamer`` on ``mesh`` that continues its stream.  The
+    JAX streamer's blocks must have been in-kernel (``rot_impl=
+    'broadcast'``) or host rotated: both leave the same carries."""
+    states = np.asarray(streamer.states)
+    port = ShardedFusedStreamer(mesh, states.shape[0],
+                                config_from_jax(streamer.config))
+    port.states, port.resamp_hists = sharded_carry_from_jax(
+        states, streamer.resamp_hists, device=mesh.home)
+    return port
+
+
+def sharded_streamer_to_jax(streamer: ShardedFusedStreamer
+                            ) -> tuple[np.ndarray, np.ndarray]:
+    """A ``ShardedFusedStreamer``'s ``(states, resamp_hists)`` as numpy, to
+    assign to a ``ShardedPallasStreamer`` of the same stations."""
+    return sharded_carry_to_jax(streamer.states, streamer.resamp_hists)

@@ -101,6 +101,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tsdr_fm_resample.restype = i
     lib.tsdr_pfb_channelize.argtypes = [p, ll, i, i, i, p, p, p, p, p]
     lib.tsdr_pfb_channelize.restype = i
+    lib.tsdr_halo_pull.argtypes = [i, p, p, ll, p, p, p, i, p]
+    lib.tsdr_halo_pull.restype = i
+    lib.tsdr_ring_shift.argtypes = [i, p, ll, p, p, i, p]
+    lib.tsdr_ring_shift.restype = i
+    lib.tsdr_enable_peer.argtypes = [i, i]
+    lib.tsdr_enable_peer.restype = i
     lib.tsdr_error_string.argtypes = [i]
     lib.tsdr_error_string.restype = ctypes.c_char_p
 

@@ -33,10 +33,10 @@ def u8_to_f32(buf: torch.Tensor, scale: float = 1.0 / 127.5
 
 def rotate_fs4(re: torch.Tensor, im: torch.Tensor, phase: int
                ) -> tuple[torch.Tensor, torch.Tensor, int]:
-    """Multiply sample k by ``j**(k+phase)`` (shifts the spectrum by fs/4);
-    returns the rotated pair and the phase of the next block's first
-    sample."""
-    n = re.shape[0]
+    """Multiply sample k (along the last axis) by ``j**(k+phase)`` (shifts
+    the spectrum by fs/4); returns the rotated pair and the phase of the
+    next block's first sample."""
+    n = re.shape[-1]
     k = (torch.arange(n, device=re.device) + phase) % 4
     # j**k: 0 -> (re, im); 1 -> (-im, re); 2 -> (-re, -im); 3 -> (im, -re)
     out_re = torch.where(k == 0, re, torch.where(

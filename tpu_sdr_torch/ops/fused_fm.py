@@ -182,11 +182,21 @@ def fm_front_reference(data_u8: torch.Tensor, phase: int, carry: torch.Tensor,
     return z, new
 
 
+def _output(out: torch.Tensor | None, numel: int, device) -> torch.Tensor:
+    """``out`` checked as a contiguous f32 vector of ``numel`` on ``device``,
+    or a new one."""
+    if out is None:
+        return torch.empty(numel, dtype=torch.float32, device=device)
+    kernels.check_tensor(out, "out", torch.float32, device, (numel,))
+    return out
+
+
 def fm_front(data_u8: torch.Tensor, phase: int, carry: torch.Tensor,
-             taps: torch.Tensor, decim: int
+             taps: torch.Tensor, decim: int, out: torch.Tensor | None = None
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """K1: u8 I/Q (2n bytes, n % decim == 0) at fs/4 ``phase`` with the
-    (4, 128) ``carry`` and effective ``taps`` -> (z, new carry)."""
+    (4, 128) ``carry`` and effective ``taps`` -> (z, new carry).  ``out``:
+    an (n/decim,) f32 tensor to write z into (a row of a station batch)."""
     n = data_u8.numel() // 2
     if data_u8.numel() % 2 or n == 0 or n % decim:
         raise ValueError(f"{data_u8.numel()} bytes is not a positive whole "
@@ -194,7 +204,10 @@ def fm_front(data_u8: torch.Tensor, phase: int, carry: torch.Tensor,
     if not 0 <= phase <= 3:
         raise ValueError(f"fs/4 phase {phase} not in 0..3")
     if not kernels.on_cuda(data_u8):
-        return fm_front_reference(data_u8, phase, carry, taps, decim)
+        z, new = fm_front_reference(data_u8, phase, carry, taps, decim)
+        if out is not None:
+            z = _output(out, z.numel(), z.device).copy_(z)
+        return z, new
     dev = data_u8.device
     kernels.check_tensor(data_u8, "data", torch.uint8, dev)
     kernels.check_tensor(carry, "carry", torch.float32, dev, (STATE_ROWS, LANES))
@@ -202,7 +215,7 @@ def fm_front(data_u8: torch.Tensor, phase: int, carry: torch.Tensor,
     if taps.numel() - 1 > LANES or data_u8.data_ptr() % 2:
         raise ValueError("taps exceed the carry, or data is not 2-byte aligned")
     lib = kernels.load().cdll
-    z = torch.empty(n // decim, dtype=torch.float32, device=dev)
+    z = _output(out, n // decim, dev)
     new = torch.empty_like(carry)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -238,22 +251,26 @@ def resample_reference(z: torch.Tensor, hist: torch.Tensor,
 
 
 def resample(z: torch.Tensor, hist: torch.Tensor, h_poly: torch.Tensor,
-             down: int) -> tuple[torch.Tensor, torch.Tensor]:
+             down: int, out: torch.Tensor | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
     """K2: z (multiple of ``down``) with (T-1,) history -> (audio
-    (len(z)/down*up,), new history)."""
+    (len(z)/down*up,), new history).  ``out``: an f32 tensor of the audio's
+    length to write it into."""
     up, T = h_poly.shape
     if z.dim() != 1 or z.numel() == 0 or z.numel() % down:
         raise ValueError(f"z of shape {tuple(z.shape)} is not a 1-D whole "
                          f"number of {down}-sample frames")
     if not kernels.on_cuda(z):
-        return resample_reference(z, hist, h_poly, down)
+        audio, new = resample_reference(z, hist, h_poly, down)
+        if out is not None:
+            audio = _output(out, audio.numel(), audio.device).copy_(audio)
+        return audio, new
     dev = z.device
     kernels.check_tensor(z, "z", torch.float32, dev)
     kernels.check_tensor(hist, "hist", torch.float32, dev, (T - 1,))
     kernels.check_tensor(h_poly, "h_poly", torch.float32, dev, (up, T))
     lib = kernels.load().cdll
-    audio = torch.empty(z.numel() // down * up, dtype=torch.float32,
-                        device=dev)
+    audio = _output(out, z.numel() // down * up, dev)
     new = torch.empty_like(hist)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

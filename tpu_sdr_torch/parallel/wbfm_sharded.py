@@ -1,0 +1,296 @@
+"""Sharded WBFM float chain: stations x time over a (dp, sp) mesh — the
+counterpart of ``tpu_sdr/parallel/wbfm_sharded.py``.
+
+Stations shard over ``dp``; time over ``sp``, where each shard demodulates
+its slice after pulling a small halo from its left neighbour
+(``parallel.halo``, the counterpart of ``lax.ppermute``): the overlap-save
+form of the serial chain's streaming carries.  Halo sizes: the FIR needs
+``taps-1`` rotated samples, the discriminator 1 decimated sample, the
+audio resampler ``T-1`` demodulated samples.
+
+Where JAX runs one function per shard under ``shard_map``, the port runs
+one row of ``sp`` shards at a time: every stage loops over the row's
+shards, each on its own place, and the exchanges sit between the stages.
+The one-hot ``psum`` that hands the JAX chain its end-of-block carry
+becomes "take the last shard's tails".
+
+Audio emission counts are data-independent closed forms of the global
+shard offset; per-shard outputs are padded to a static maximum as in JAX,
+and ``ShardedWbfm.assemble`` trims them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from tpu_sdr_torch.models import wbfm as M
+from tpu_sdr_torch.ops import fm as F
+from tpu_sdr_torch.ops import fused_fm as FF
+from tpu_sdr_torch.parallel import halo as H
+from tpu_sdr_torch.parallel import mesh as mesh_mod
+from tpu_sdr_torch.parallel.mesh import Mesh
+from tpu_sdr_torch.utils import design
+from tpu_sdr_torch.utils.design import WbfmConfig
+
+
+class XlaStreamCarry(NamedTuple):
+    """Block-to-block streaming carry of the sharded float chain (per
+    station row): the rotated FIR history, the discriminator's previous
+    decimated sample and the demodulated resampler history — the sharded
+    form of the serial ``WbfmState`` minus the rotator phase (shard and
+    block lengths are multiples of 4 samples, so it is 0 at every
+    boundary)."""
+
+    fir_re: torch.Tensor   # (stations, num_taps - 1)
+    fir_im: torch.Tensor
+    quad_re: torch.Tensor  # (stations, 1)
+    quad_im: torch.Tensor
+    rs: torch.Tensor       # (stations, T - 1)
+
+
+def initial_xla_carry(stations: int, config: WbfmConfig | None = None, *,
+                      device: str | torch.device) -> XlaStreamCarry:
+    """Fresh-stream carry: zero histories, discriminator prev = 1 + 0j
+    (the serial ``QuadState`` init)."""
+    config = config or WbfmConfig()
+    L = config.num_taps
+    T = config.resample_taps_per_phase
+
+    def zeros(n):
+        return torch.zeros(stations, n, dtype=torch.float32, device=device)
+
+    return XlaStreamCarry(zeros(L - 1), zeros(L - 1),
+                          torch.ones(stations, 1, dtype=torch.float32,
+                                     device=device),
+                          zeros(1), zeros(T - 1))
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def check_not_boxcar(config: WbfmConfig) -> None:
+    if config.filter_mode == "boxcar":
+        raise NotImplementedError(
+            "the sharded boxcar mode waits for the float chain's boxcar "
+            "mode, which is not ported yet")
+
+
+@dataclass(frozen=True)
+class ShardedWbfm:
+    """A sharded chain on ``mesh``.  ``fn(shards, *carry)`` takes the
+    ``shards[d][s]`` of :meth:`shard` and returns ``(audio, counts, *new
+    carry)``: ``audio[d][s]`` the (stations_loc, m_max) padded audio of
+    each shard (``None`` for rows another process computes), ``counts[s]``
+    the valid samples of time shard s."""
+
+    mesh: Mesh
+    config: WbfmConfig
+    fn: Callable
+
+    def shard(self, blocks) -> list[list[torch.Tensor | None]]:
+        """(stations, n) blocks -> per-shard tensors on their places."""
+        return mesh_mod.shard_time(self.mesh, blocks)
+
+    def __call__(self, shards, *carry):
+        return self.fn(shards, *carry)
+
+    def assemble(self, audio, counts) -> np.ndarray:
+        """Trim per-shard padding, concatenate time shards and stack the
+        rows this process computed, as numpy."""
+        home = self.mesh.home
+        rows = [torch.cat([a[:, :c].to(home) for a, c in zip(row, counts)],
+                          dim=1)
+                for row in audio if row is not None]
+        return torch.cat(rows).cpu().numpy()
+
+
+def _row_carry(carry, i: int, st: int, device: torch.device):
+    """Local row i's slice of global (stations, ...) carry tensors."""
+    return [c[i * st:(i + 1) * st].to(device) for c in carry]
+
+
+def _gather(ends, device: torch.device) -> list[torch.Tensor]:
+    """Per-row end-of-block tensors -> global (stations, ...) on ``device``."""
+    return [torch.cat([row[k].to(device) for row in ends])
+            for k in range(len(ends[0]))]
+
+
+def run_rows(mesh: Mesh, shards, carry, row_fn):
+    """Run ``row_fn(row, row_carry) -> (audio, counts, ends)`` over the rows
+    this process computes; returns (audio, counts[, *gathered ends])."""
+    audio: list = [None] * mesh.devices.shape[0]
+    ends, counts = [], None
+    for i, d in enumerate(mesh.local_rows()):
+        row = shards[d]
+        st = row[0].shape[0]
+        row_carry = (None if carry is None
+                     else _row_carry(carry, i, st, row[0].device))
+        audio[d], counts, end = row_fn(row, row_carry)
+        ends.append(end)
+    if carry is None:
+        return audio, counts
+    return (audio, counts, *_gather(ends, mesh.home))
+
+
+def resample_shard(demod: torch.Tensor, halo: torch.Tensor, shard: int,
+                   config: WbfmConfig, h_poly: torch.Tensor,
+                   V: torch.Tensor | None = None, kernel: bool = False
+                   ) -> tuple[torch.Tensor, int]:
+    """Per-shard audio resampler with global-phase closed forms.
+
+    ``demod``: (stations_loc, n_out) discriminator output of time shard
+    ``shard``; ``halo``: its left neighbour's last T-1 samples (the
+    previous block's tail on shard 0).  Returns (audio (stations_loc,
+    m_max), count).  When every shard starts on a frame boundary (n_out %
+    down == 0) it is the serial aligned resampler with the halo as history:
+    the frame matmul with ``V``, or K2 (``fused_fm.resample``) per station
+    when ``kernel``.  Otherwise each output's global polyphase phase is
+    computed from the shard offset."""
+    check_not_boxcar(config)
+    st, n_out = demod.shape
+    up, down = config.resample_up, config.resample_down
+    T = h_poly.shape[1]
+    if n_out < T - 1:
+        raise ValueError(f"time shard too small for the single-neighbour "
+                         f"resampler halo: n_out={n_out} needs >= {T - 1} "
+                         f"demodulated samples")
+    if n_out % down == 0:
+        count = n_out // down * up
+        if not kernel:
+            audio, _ = F.aligned_resample(demod, V, up, down,
+                                          F.AlignedResampleState(halo))
+            return audio, count
+        audio = torch.empty(st, count, dtype=torch.float32,
+                            device=demod.device)
+        halo = halo.contiguous()
+        for j in range(st):
+            FF.resample(demod[j], halo[j], h_poly, down, out=audio[j])
+        return audio, count
+
+    start = shard * n_out  # global index of the shard's first sample
+    m_max = (n_out * up) // down + 1
+    buf = torch.cat([halo, demod], dim=1)
+    j0 = _cdiv(start * up, down)
+    count = _cdiv((start + n_out) * up, down) - j0
+    dev = demod.device
+    m = j0 + torch.arange(m_max, device=dev)
+    tt = m * down
+    q = tt // up  # global input index of the newest window sample
+    p = tt % up
+    t_idx = torch.arange(T, device=dev)
+    win = torch.clamp(q[:, None] - t_idx[None, :] - start + (T - 1), 0,
+                      buf.shape[1] - 1)
+    windows = buf[:, win]  # (st, m_max, T)
+    audio = torch.einsum("smt,mt->sm", windows, h_poly[p])
+    return audio, count
+
+
+def _rotated_samples(block: torch.Tensor):
+    """u8 (stations, 2n) -> fs/4-rotated (re, im), (stations, n) each,
+    centred as ``F.u8_to_f32``; phase 0 (shards are 0 mod 4 samples)."""
+    x = block.to(torch.float32) * (1.0 / 127.5) - 1.0
+    re, im, _ = F.rotate_fs4(x[:, 0::2], x[:, 1::2], 0)
+    return re, im
+
+
+def make_sharded_wbfm(mesh: Mesh, config: WbfmConfig | None = None,
+                      carry_io: bool = False) -> ShardedWbfm:
+    """The sharded float chain (``fir`` mode) on ``mesh``.
+
+    ``carry_io``: block-to-block streaming.  ``fn`` becomes ``fn(shards,
+    carry: XlaStreamCarry) -> (audio, counts, new_carry)``: the carry of
+    the stations this process computes seeds shard 0's FIR, discriminator
+    and resampler halos, and the LAST time shard's end-of-block values come
+    back (on ``mesh.home``) — feed them forward and the chain is
+    sample-exact with one serial stream across blocks.  Start from
+    :func:`initial_xla_carry`."""
+    config = config or WbfmConfig()
+    check_not_boxcar(config)
+    decim = config.decim
+    L = config.num_taps
+    T = config.resample_taps_per_phase
+    banks = {}
+    for dev in set(mesh.devices.flat):
+        params = M.WbfmParams(config, dev)
+        banks[dev] = (params.decim_W, params.resamp_V, torch.from_numpy(
+            design.resampler_poly(config)).to(dev))
+
+    def row_fn(blocks, carry):
+        edge = None if carry is None else XlaStreamCarry(*carry)
+        st = blocks[0].shape[0]
+        rot = []
+        for b in blocks:
+            n_loc = b.shape[1] // 2
+            if b.shape[1] % 2 or n_loc % (4 * decim):
+                raise ValueError("a time shard must be a multiple of 4 "
+                                 "samples (rotation phase) and of the "
+                                 f"decimation {decim}")
+            if n_loc < L - 1 or n_loc // decim < T - 1:
+                raise ValueError(f"time shard of {n_loc} samples is too "
+                                 "small for the single-neighbour halos")
+            rot.append(_rotated_samples(b))
+
+        # FIR: the left neighbour's last L-1 rotated samples
+        hre = H.pull_left_halo([r.T for r, _ in rot], L - 1,
+                               None if edge is None else edge.fir_re.T)
+        him = H.pull_left_halo([i.T for _, i in rot], L - 1,
+                               None if edge is None else edge.fir_im.T)
+        dec = []
+        for (re, im), h_re, h_im in zip(rot, hre, him):
+            W = banks[re.device][0]
+            xext = torch.cat([torch.cat([h_re.T, re], dim=1),
+                              torch.cat([h_im.T, im], dim=1)])
+            y = F.banded_decim_apply(xext, W, decim, re.shape[1] // decim)
+            dec.append((y[:st], y[st:]))
+
+        # discriminator: a 1-sample halo at the decimated rate; the global
+        # left edge is seeded (1, 0) like the serial QuadState init
+        pre_re = H.pull_left_halo(
+            [d.T for d, _ in dec], 1,
+            torch.ones(1, st, device=blocks[0].device) if edge is None
+            else edge.quad_re.T)
+        pre_im = H.pull_left_halo([d.T for _, d in dec], 1,
+                                  None if edge is None else edge.quad_im.T)
+        demods = [F.quadrature_demod(d_re, d_im,
+                                     F.QuadState(p_re[0], p_im[0]))[0]
+                  for (d_re, d_im), p_re, p_im in zip(dec, pre_re, pre_im)]
+
+        rs_halo = H.pull_left_halo([d.T for d in demods], T - 1,
+                                   None if edge is None else edge.rs.T)
+        audio, counts = [], []
+        for s, (demod, h) in enumerate(zip(demods, rs_halo)):
+            _, V, h_poly = banks[demod.device]
+            a, c = resample_shard(demod, h.T, s, config, h_poly, V)
+            audio.append(a)
+            counts.append(c)
+        (re, im), (d_re, d_im) = rot[-1], dec[-1]
+        ends = (re[:, re.shape[1] - (L - 1):], im[:, im.shape[1] - (L - 1):],
+                d_re[:, -1:], d_im[:, -1:], demods[-1][:, -(T - 1):])
+        return audio, counts, ends
+
+    def fn(shards, carry: XlaStreamCarry | None = None):
+        if carry_io != (carry is not None):
+            raise ValueError("pass a carry exactly when the chain was built "
+                             "with carry_io=True")
+        out = run_rows(mesh, shards, carry, row_fn)
+        if carry is None:
+            return out
+        audio, counts, *ends = out
+        return audio, counts, XlaStreamCarry(*ends)
+
+    return ShardedWbfm(mesh=mesh, config=config, fn=fn)
+
+
+def sharded_wbfm_apply(chain: ShardedWbfm, blocks, *carry):
+    """Place (stations, bytes) u8 ``blocks`` on the mesh and run the chain."""
+    return chain(chain.shard(blocks), *carry)
+
+
+def expected_m_max(config: WbfmConfig, n_loc_out: int) -> int:
+    check_not_boxcar(config)
+    return (n_loc_out * config.resample_up) // config.resample_down + 1

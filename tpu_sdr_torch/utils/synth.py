@@ -1,0 +1,80 @@
+"""Synthetic WBFM captures and the tone SNR that scores them (numpy only),
+the counterpart of the mono parts of ``tpu_sdr/utils/synth.py`` with the
+same arithmetic, so that both packages make the same bytes.
+
+A known audio tone is FM-modulated, offset (or placed in a wideband
+capture) and quantized to interleaved u8 I/Q, as an RTL-SDR delivers it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def _to_u8(sig: np.ndarray) -> np.ndarray:
+    """Complex samples in [-1, 1] -> interleaved u8 I/Q."""
+    iq = np.empty(2 * len(sig), dtype=np.float64)
+    iq[0::2] = sig.real
+    iq[1::2] = sig.imag
+    return np.clip(np.round(iq * 127.0 + 127.5), 0, 255).astype(np.uint8)
+
+
+def synth_wbfm_u8(num_samples: int, capture_rate: float = 1_020_000.0,
+                  audio_freq: float = 1_000.0, deviation: float = 75_000.0,
+                  amplitude: float = 0.9, noise_std: float = 0.0,
+                  seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """``num_samples`` complex samples of one station FM-modulated by an
+    ``audio_freq`` tone, at -fs/4 (the offset-tuned capture that the fs/4
+    rotation brings to DC), with optional complex Gaussian noise.  Returns
+    ``(iq_u8 of length 2*num_samples, the modulating audio)``."""
+    t = np.arange(num_samples) / capture_rate
+    audio = np.sin(2 * np.pi * audio_freq * t)
+    phase = 2 * np.pi * deviation * np.cumsum(audio) / capture_rate
+    offset = np.choose(np.arange(num_samples) % 4, [1 + 0j, -1j, -1 + 0j, 1j])
+    sig = amplitude * np.exp(1j * phase) * offset
+    if noise_std > 0:
+        rng = np.random.default_rng(seed)
+        sig = sig + noise_std * (rng.standard_normal(num_samples)
+                                 + 1j * rng.standard_normal(num_samples))
+    return _to_u8(sig), audio
+
+
+def synth_multistation_u8(num_samples: int, capture_rate: float,
+                          station_freqs: list[float],
+                          audio_freqs: list[float],
+                          deviation: float = 75_000.0,
+                          amplitude: float | None = None
+                          ) -> tuple[np.ndarray, list[np.ndarray]]:
+    """A wideband capture holding several stations: station s is
+    FM-modulated by an ``audio_freqs[s]`` tone at ``station_freqs[s]`` Hz
+    from the capture centre.  Returns ``(iq_u8, per-station audio)``."""
+    if len(station_freqs) != len(audio_freqs):
+        raise ValueError("one audio tone a station")
+    if amplitude is None:
+        amplitude = 0.85 / len(station_freqs)
+    t = np.arange(num_samples) / capture_rate
+    sig = np.zeros(num_samples, dtype=np.complex128)
+    audios = []
+    for f_c, f_a in zip(station_freqs, audio_freqs):
+        audio = np.sin(2 * np.pi * f_a * t)
+        audios.append(audio)
+        phase = 2 * np.pi * deviation * np.cumsum(audio) / capture_rate
+        sig += amplitude * np.exp(1j * (phase + 2 * np.pi * f_c * t))
+    return _to_u8(sig), audios
+
+
+def tone_snr(x: np.ndarray, freq: float, fs: float, skip: int = 0) -> float:
+    """SNR (dB) of a recovered ``freq`` tone: ``x`` (after ``skip``
+    samples, mean removed) is projected onto sin and cos at ``freq``, so
+    the filters' delay and gain do not count as error."""
+    x = np.asarray(x[skip:], dtype=np.float64)
+    x = x - x.mean()
+    t = np.arange(len(x)) / fs
+    basis = np.stack([np.sin(2 * np.pi * freq * t),
+                      np.cos(2 * np.pi * freq * t)], axis=1)
+    coef, *_ = np.linalg.lstsq(basis, x, rcond=None)
+    fit = basis @ coef
+    p_err = np.dot(x - fit, x - fit)
+    if p_err == 0:
+        return np.inf
+    return float(10 * np.log10(np.dot(fit, fit) / p_err))
