@@ -5,13 +5,18 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
+(``--baseline-csrc DIR``, for an A/B measurement only and never needed by
+the smoke test itself, also builds another commit's kernel sources and
+times its K1 and K2 beside these, in the same rounds.)
+
 It builds the port's CUDA kernels from ``tpu_sdr_torch/csrc`` and drives
 the ported paths through their user entry points:
 
 * single station: K1 (``fm_front``, all four fs/4 phases) and K2
   (``fm_resample``) against their plain PyTorch versions on a 25 MB block
-  (12,533,760 complex samples), then ``tpu_sdr_torch.apps.simple_fm --mode
-  fused`` on a 10.24 s synthetic station;
+  (12,533,760 complex samples) and at one ragged size each, then
+  ``tpu_sdr_torch.apps.simple_fm --mode fused`` on a 10.24 s synthetic
+  station;
 * wideband: K3 (``pfb_channelize``) against its plain version on a 25 MB
   block of an 8-station capture at 10.88 Msps (all 64 channels and a
   16-channel column slice), then ``tpu_sdr_torch.apps.multi_fm --fused``
@@ -30,8 +35,11 @@ the ported paths through their user entry points:
 
 Each path's launch counts are zeroed just before it runs and read just
 after; the audio is checked (length, tone SNR, agreement with the plain
-PyTorch chain).  The kernels and their plain versions are timed with CUDA
-events, the streamer and the CLIs with the host clock.
+PyTorch chain).  The kernels, their plain versions and the one-call
+library yardsticks (K2 and K3 a strided ``conv1d``, K4 a ``cat``, K5 a
+``roll``; K1 has none) are timed with CUDA events, the streamer and the
+CLIs with the host clock; each kernel's roofline bound is computed from
+its shapes and the H100's published peaks.
 
 The last two lines of stdout are a JSON line describing the kernels and
 ``{"ok": true, "device": {...}}``; any failure raises (non-zero exit, no
@@ -42,15 +50,13 @@ from __future__ import annotations
 
 import io
 import json
+import math
 import os
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
-
-# TPU_SDR_PLATFORM makes tpu_sdr/__init__.py import jax; the port never does.
-os.environ.pop("TPU_SDR_PLATFORM", None)
 
 BLOCK_COMPLEX = 12_533_760   # 192 chunks of 65,280: the 25 MB main-path block
 PATH_CHUNKS = 160            # 10.24 s at 1.02 Msps
@@ -76,6 +82,23 @@ SHARD_DP, SHARD_SP = 2, 4
 SHARD_STATIONS = 4
 SHARD_BLOCKS = 2             # consecutive 25 MB blocks per station
 HALO_BIG_FLOATS = 1 << 20    # the multi-MB payload of the K4/K5 checks (4 MB)
+
+
+# Published H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit):
+# the least time a kernel could take is the larger of its bytes over HBM
+# and its operations over the f32 rate (each input read once, each output
+# written once).
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The roofline bound of a kernel's work: ms, and what bounds it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    if t_bytes >= t_ops:
+        return {"bound_ms": t_bytes, "bound_by": "bytes", "peak": "hbm"}
+    return {"bound_ms": t_ops, "bound_by": "operations", "peak": "f32"}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -286,8 +309,34 @@ def wideband(dev, flush) -> dict:
           flush=True)
 
     # ---- (c) device timings on the 25 MB block ---------------------------
+    # the library yardstick: one strided convolution over the x255 I/Q
+    # stream as 2 channels with the history prepended (the u8 unpack is
+    # left out of the call), weights (2 Ko, 2, R K) folding M2's complex
+    # recombination; the port never calls it
+    H, R = spec.branch_rows - 1, spec.branch_rows
+    Ko = params.kernel_m2.shape[1] // 2
+    m2_rev = params.kernel_m2.reshape(R, K, 2 * Ko).flip(0).reshape(R * K,
+                                                                      2 * Ko)
+    w_conv = torch.stack([
+        torch.cat([m2_rev[:, :Ko].T, m2_rev[:, Ko:].T]),
+        torch.cat([-m2_rev[:, Ko:].T, m2_rev[:, :Ko].T])], dim=1).contiguous()
+    x255 = data.reshape(-1, K, 2).to(torch.float32) * 2.0 - 255.0
+    x_conv = torch.stack([torch.cat([carry[:H], x255[..., 0]]).reshape(-1),
+                          torch.cat([carry[H:], x255[..., 1]]).reshape(-1)]
+                         )[None].contiguous()
+    del x255
+
+    def library():
+        return torch.nn.functional.conv1d(x_conv, w_conv, stride=K)
+
+    y_r, _ = FC.channelize_reference(data, carry, params.kernel_m2, spec)
+    s_lib = snr_db(y_r.cpu().numpy(), library()[0].T.cpu().numpy())
+    print(f"pfb_channelize library yardstick (conv1d, stride {K}): "
+          f"{s_lib:.1f} dB vs the plain version", flush=True)
+    del y_r
     state = WB.init_state(config, params)
     ms = device_ms({
+        "pfb_channelize_library": library,
         "pfb_channelize_plain": lambda: FC.channelize_reference(
             data, carry, params.kernel_m2, spec),
         "pfb_channelize": lambda: FC.channelize(data, carry, params.kernel_m2,
@@ -297,7 +346,15 @@ def wideband(dev, flush) -> dict:
         "wideband_plain_device": lambda: WB.demodulate_block(
             data, state, params, config),
     }, flush=flush)
+    # the bound counts the function, not M2's dense product: per frame an
+    # R-tap branch filter on each of K branches (complex samples, real
+    # taps: 4 R K FLOP) and a K-point DFT (~5 K log2 K); bytes: the u8
+    # block, the complex f32 output, the carry both ways, the R K taps
+    m = n_block // K
+    b = bound(2 * n_block + 4 * m * 2 * Ko + 2 * 4 * carry.numel() + 4 * R * K,
+              m * (4 * R * K + 5 * K * math.log2(K)))
     return {"err": err, "snr_db": snrs, "launches": launches, "ms": ms,
+            "bound": b, "library_snr_db": s_lib,
             "path": {"complex": n_path, "stations": len(WB_CHANNELS),
                      "tone_db": tones, "fused_vs_plain_db": s_fronts,
                      "wall_s": wall, "realtime_x": realtime_x}}
@@ -618,7 +675,24 @@ def sharded(dev, flush, u8_two) -> dict:
     chain = WSF.make_sharded_wbfm_fused(
         PM.make_mesh(1, SHARD_SP, devices=[dev] * SHARD_SP), carry_io=True)
     shards = chain.shard(data[None])
+    # the library yardsticks, on the shards stacked on one card: K4's
+    # non-circular shift with its edge is one cat of the edge and the
+    # left neighbours' tails; K5's circular shift one roll
+    ends_stacked, step_stacked = torch.stack(ends), torch.stack(step)
+
+    def halo_library():
+        return torch.cat((edge.view(1, -1), ends_stacked[:-1, -1024:]))
+
+    def ring_library():
+        return torch.roll(step_stacked, 1, 0)
+
+    require(torch.equal(halo_library(), torch.stack(
+        H.pull_left_halo(ends, 1024, edge))), "the K4 yardstick differs")
+    require(torch.equal(ring_library(), torch.stack(H.ring_shift(step))),
+            "the K5 yardstick differs")
     ms = device_ms({
+        "halo_pull_library": halo_library,
+        "ring_shift_library": ring_library,
         "halo_pull_plain": lambda: H.pull_left_halo(ends, 1024, edge),
         "halo_pull": lambda: CH.pull_left_halo_cuda(ends, 1024, edge),
         "halo_pull_tails_plain": lambda: H.pull_left_halo(tails, 94,
@@ -638,13 +712,30 @@ def sharded(dev, flush, u8_two) -> dict:
                                                  h_poly, spec),
     }, flush=flush)
     ms.update(chan["ms"])
+    del ends_stacked, step_stacked
+    bounds = {"halo_pull": bound(2 * 4 * SHARD_SP * 1024, 0),
+              "ring_shift": bound(2 * 4 * SHARD_SP * step[0].numel(), 0)}
     return {"err": err, "path": path, "peer": peer, "chan": chan, "ms": ms,
+            "bounds": bounds,
             "halo_us": (ms["halo_pull"] + ms["halo_pull_tails"]) * 1e3,
             "sharded_overhead_ratio": ms["sharded_sp4"] / ms["unsharded"]}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    p = argparse.ArgumentParser(description="Smoke test of the port on one "
+                                "NVIDIA GPU.")
+    p.add_argument("--baseline-csrc", metavar="DIR",
+                   help="an A/B measurement only, never needed for the smoke "
+                        "test itself: also build the kernel sources in DIR "
+                        "(another commit's tpu_sdr_torch/csrc) and time its "
+                        "K1 and K2 beside these, in the same rounds (printed "
+                        "as 'time fm_front_parent' / 'fm_resample_parent' "
+                        "and in the metrics line)")
+    args = p.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -723,11 +814,89 @@ def main() -> int:
     print(f"fm_resample: {s_rs:.1f} dB vs plain, max |da| {err_resample:.3g}",
           flush=True)
 
+    # one ragged size of each: outputs not a whole number of rows, warp
+    # tiles or stages; frames not a whole number of tiles
+    m_rag, frames_rag = 40_003, 1_237
+    block = data[:2 * spec.decim * m_rag]
+    z_k, c_k = FF.fm_front(block, 2, carry, taps, spec.decim)
+    z_g, c_g = FF.fm_front_reference(block, 2, carry, taps, spec.decim)
+    a_k, h_k = FF.resample(z_r[:frames_rag * spec.down], hist, h_poly,
+                           spec.down)
+    a_g, h_g = FF.resample_reference(z_r[:frames_rag * spec.down], hist,
+                                     h_poly, spec.down)
+    torch.cuda.synchronize()
+    s_front_rag = snr_db(z_g.cpu().numpy(), z_k.cpu().numpy())
+    s_rs_rag = snr_db(a_g.cpu().numpy(), a_k.cpu().numpy())
+    require(s_front_rag >= SNR_KERNEL_DB and s_rs_rag >= SNR_KERNEL_DB,
+            f"ragged: fm_front {s_front_rag:.1f} dB, fm_resample "
+            f"{s_rs_rag:.1f} dB")
+    require(float((c_k - c_g).abs().max()) <= 1e-3, "ragged fm_front carry")
+    require(torch.equal(h_k, h_g), "ragged fm_resample: history differs")
+    err_front = max(err_front, float((z_k - z_g).abs().max()))
+    err_resample = max(err_resample, float((a_k - a_g).abs().max()))
+    print(f"ragged: fm_front at {m_rag} outputs {s_front_rag:.1f} dB, "
+          f"fm_resample at {frames_rag} frames {s_rs_rag:.1f} dB vs plain, "
+          f"carry and history held", flush=True)
+
+    # K2's library yardstick: one strided convolution of xe = [history |
+    # z] with the (up, 1, 127) bank (row s: h[p_s] reversed at o_s); it
+    # gives (up, frames), the frame-major transpose is left outside
+    up, T = h_poly.shape
+    o_s = [s * spec.down // up for s in range(up)]
+    w_rs = torch.zeros(up, 1, max(o_s) + T, device=dev)
+    for s in range(up):
+        w_rs[s, 0, o_s[s]:o_s[s] + T] = h_poly[s * spec.down % up].flip(0)
+    xe = torch.cat([hist, z_r])[None, None].contiguous()
+
+    def resample_library():
+        return torch.nn.functional.conv1d(xe, w_rs, stride=spec.down)
+
+    s_rs_lib = snr_db(a_r.cpu().numpy(),
+                      resample_library()[0].T.reshape(-1).cpu().numpy())
+    print(f"fm_resample library yardstick (conv1d, stride {spec.down}): "
+          f"{s_rs_lib:.1f} dB vs the plain version", flush=True)
+
+    # the parent commit's kernels, built from its sources, for the A/B
+    parent = {}
+    if args.baseline_csrc:
+        path, _, _ = kernels.build(args.baseline_csrc, os.path.join(
+            kernels.BUILD_DIR, "baseline"))
+        plib = kernels.bind(path)
+        z_p = torch.empty(BLOCK_COMPLEX // spec.decim, device=dev)
+        c_p, a_p = torch.empty_like(carry), torch.empty_like(a_r)
+        h_p = torch.empty_like(hist)
+
+        def stream():
+            return torch.cuda.current_stream().cuda_stream
+
+        def parent_front():
+            kernels.check(plib.tsdr_fm_front(
+                data.data_ptr(), BLOCK_COMPLEX, 1, carry.data_ptr(),
+                taps.data_ptr(), taps.numel(), spec.decim, z_p.data_ptr(),
+                c_p.data_ptr(), stream()), "baseline fm_front")
+
+        def parent_resample():
+            kernels.check(plib.tsdr_fm_resample(
+                z_r.data_ptr(), z_r.numel(), hist.data_ptr(),
+                h_poly.data_ptr(), up, spec.down, T, a_p.data_ptr(),
+                h_p.data_ptr(), stream()), "baseline fm_resample")
+
+        parent_front()
+        parent_resample()
+        z_1, _ = FF.fm_front_reference(data, 1, carry, taps, spec.decim)
+        s_pf = snr_db(z_1.cpu().numpy(), z_p.cpu().numpy())
+        s_pr = snr_db(a_r.cpu().numpy(), a_p.cpu().numpy())
+        require(min(s_pf, s_pr) >= SNR_KERNEL_DB, "baseline kernels disagree")
+        print(f"baseline kernels from {args.baseline_csrc}: fm_front "
+              f"{s_pf:.1f} dB, fm_resample {s_pr:.1f} dB vs plain", flush=True)
+        parent = {"fm_front_parent": parent_front,
+                  "fm_resample_parent": parent_resample}
+        del z_1
+
     # ---- path phase: the user entry point on a 10.24 s station --------
     n_path = PATH_CHUNKS * spec.chunk_complex
     with tempfile.TemporaryDirectory() as tmp:
-        # set-up the CLI pays once per checkout (the host s16 library's
-        # first build): one chunk through it first
+        # set-up the CLI pays once a process: one chunk through it first
         path = os.path.join(tmp, "station.u8")
         u8[: spec.chunk_bytes].tofile(path)
         t0 = time.monotonic()
@@ -767,19 +936,36 @@ def main() -> int:
         "fm_resample_plain": lambda: FF.resample_reference(z_r, hist, h_poly,
                                                            spec.down),
         "fm_resample": lambda: FF.resample(z_r, hist, h_poly, spec.down),
+        "fm_resample_library": resample_library,
         "fused_path_device": lambda: FF.demodulate_fused(
             data, 1, carry, hist, taps, h_poly, spec),
+        **parent,
     }, flush=flush_buf.zero_)
     streamer = FF.FusedWbfmStreamer(device=dev)
     ms["streamer_block"] = host_ms(lambda: streamer.demodulate(u8))
 
+    # the bounds of K1 and K2 on the block: K1 reads 2 bytes a sample and
+    # writes z, and its operations are the FIR's (re and im, an FMA a tap)
+    # with the discriminator's complex product and ~16 of the atan; K2
+    # reads z and writes the audio, 2 FLOP a tap of an output
+    M = BLOCK_COMPLEX // spec.decim
+    L, frames = taps.numel(), M // spec.down
+    bounds = {
+        "fm_front": bound(2 * BLOCK_COMPLEX + 4 * M + 2 * 4 * carry.numel()
+                          + 4 * L, M * (2 * 2 * L + 6 + 16)),
+        "fm_resample": bound(4 * M + 4 * frames * up + 2 * 4 * (T - 1)
+                             + 4 * up * T, 2 * up * T * frames),
+    }
+
     # ---- the wideband path: K3 and multi_fm --fused ---------------------
     wb = wideband(dev, flush_buf.zero_)
     ms.update(wb["ms"])
+    bounds["pfb_channelize"] = wb["bound"]
 
     # ---- the sharded paths: K4, K5, ShardedFusedStreamer, channelizer ----
     sh = sharded(dev, flush_buf.zero_, u8_two)
     ms.update(sh["ms"])
+    bounds.update(sh["bounds"])
     for name, t in ms.items():
         rate = ("" if name.startswith(("halo_pull", "ring_shift")) else
                 f" = {BLOCK_COMPLEX / t / 1e3:.1f} Msps")
@@ -787,9 +973,24 @@ def main() -> int:
     print(f"halo cost (the sp={SHARD_SP} step's two K4 exchanges): "
           f"{sh['halo_us']:.2f} us; sharded sp={SHARD_SP} / unsharded step: "
           f"{sh['sharded_overhead_ratio']:.4f} ({smi})", flush=True)
+    library = {"fm_front": None, "fm_resample": "fm_resample_library",
+               "pfb_channelize": "pfb_channelize_library",
+               "halo_pull": "halo_pull_library",
+               "ring_shift": "ring_shift_library"}
+    for name, b in bounds.items():
+        lib_ms = ms[library[name]] if library[name] else None
+        print(f"bound {name}: {b['bound_ms']:.4f} ms ({b['bound_by']}, "
+              f"{b['peak']}), kernel {ms[name]:.4f} ms = "
+              f"{100 * b['bound_ms'] / ms[name]:.1f}% of it, library "
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} ({smi})",
+              flush=True)
     print("metrics " + json.dumps({
         "card": smi, "block_complex": BLOCK_COMPLEX, "reps": REPS, "ms": ms,
+        "bounds": bounds,
         "snr_fm_front_db": snrs, "snr_fm_resample_db": s_rs,
+        "snr_ragged_db": {"fm_front": s_front_rag, "fm_resample": s_rs_rag},
+        "snr_library_db": {"fm_resample": s_rs_lib,
+                           "pfb_channelize": wb["library_snr_db"]},
         "path": {"complex": n_path, "tone_db": tone, "vs_fir_db": s_fir,
                  "wall_s": app_s, "realtime_x": n_path / app_s / REALTIME_SPS},
         "snr_pfb_channelize_db": wb["snr_db"], "wideband_path": wb["path"],
@@ -800,35 +1001,28 @@ def main() -> int:
         "sharded_overhead_ratio": sh["sharded_overhead_ratio"],
     }), flush=True)
 
+    rows = [
+        ("fm_front", "tpu_sdr_torch/csrc/fm_front.cu",
+         "tpu_sdr/ops/pallas_fm.py:177", launches["fm_front"], err_front),
+        ("fm_resample", "tpu_sdr_torch/csrc/fm_resample.cu",
+         "tpu_sdr/ops/pallas_fm.py:760", launches["fm_resample"],
+         err_resample),
+        ("pfb_channelize", "tpu_sdr_torch/csrc/pfb_channelize.cu",
+         "tpu_sdr/ops/pallas_channelizer.py:92", wb["launches"], wb["err"]),
+        ("halo_pull", "tpu_sdr_torch/csrc/halo.cu",
+         "tpu_sdr/parallel/pallas_halo.py:42",
+         sh["path"]["launches"]["halo_pull"], sh["err"]),
+        ("ring_shift", "tpu_sdr_torch/csrc/halo.cu",
+         "tpu_sdr/parallel/pallas_halo.py:145",
+         sh["chan"]["launches"]["ring_shift"], sh["err"]),
+    ]
     print(json.dumps({"kernels": [
-        {"name": "fm_front", "route": "cuda",
-         "source": "tpu_sdr_torch/csrc/fm_front.cu",
-         "replaces": "tpu_sdr/ops/pallas_fm.py:177",
-         "launches": launches["fm_front"], "max_abs_err": err_front,
-         "ms": ms["fm_front"], "plain_ms": ms["fm_front_plain"]},
-        {"name": "fm_resample", "route": "cuda",
-         "source": "tpu_sdr_torch/csrc/fm_resample.cu",
-         "replaces": "tpu_sdr/ops/pallas_fm.py:760",
-         "launches": launches["fm_resample"], "max_abs_err": err_resample,
-         "ms": ms["fm_resample"], "plain_ms": ms["fm_resample_plain"]},
-        {"name": "pfb_channelize", "route": "cuda",
-         "source": "tpu_sdr_torch/csrc/pfb_channelize.cu",
-         "replaces": "tpu_sdr/ops/pallas_channelizer.py:92",
-         "launches": wb["launches"], "max_abs_err": wb["err"],
-         "ms": ms["pfb_channelize"], "plain_ms": ms["pfb_channelize_plain"]},
-        {"name": "halo_pull", "route": "cuda",
-         "source": "tpu_sdr_torch/csrc/halo.cu",
-         "replaces": "tpu_sdr/parallel/pallas_halo.py:42",
-         "launches": sh["path"]["launches"]["halo_pull"],
-         "max_abs_err": sh["err"],
-         "ms": ms["halo_pull"], "plain_ms": ms["halo_pull_plain"]},
-        {"name": "ring_shift", "route": "cuda",
-         "source": "tpu_sdr_torch/csrc/halo.cu",
-         "replaces": "tpu_sdr/parallel/pallas_halo.py:145",
-         "launches": sh["chan"]["launches"]["ring_shift"],
-         "max_abs_err": sh["err"],
-         "ms": ms["ring_shift"], "plain_ms": ms["ring_shift_plain"]},
-    ]}), flush=True)
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": count, "max_abs_err": err, "ms": ms[name],
+         "plain_ms": ms[f"{name}_plain"], "bound_ms": bounds[name]["bound_ms"],
+         "bound_by": bounds[name]["bound_by"], "peak": bounds[name]["peak"],
+         "library_ms": ms[library[name]] if library[name] else None}
+        for name, source, replaces, count, err in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -83,11 +83,66 @@ def test_fm_front_kernel_ragged_calls(capture, dev, m):
     torch.testing.assert_close(c, cr, rtol=1e-5, atol=1e-3)
 
 
-@pytest.mark.parametrize("frames", [3, 256])
+@pytest.mark.parametrize("chunks", [1, 2, 192])
+def test_fm_front_kernel_whole_chunks(dev, chunks):
+    """1, 2 and 192 chunks (the 25 MB block: 2,040 stages of 1,024
+    outputs on a persistent grid) of random bytes from a mid-stream carry."""
+    rng = np.random.default_rng(chunks)
+    taps, _ = FF.make_kernel_params(device=dev)
+    data = torch.from_numpy(rng.integers(0, 256, chunks * CHUNK,
+                                         dtype=np.uint8)).to(dev)
+    carry = _mid_stream_carry(data, taps, dev)
+    before = FF.LAUNCHES["fm_front"]
+    z, c = FF.fm_front(data, 1, carry, taps, SPEC.decim)
+    zr, cr = FF.fm_front_reference(data, 1, carry, taps, SPEC.decim)
+    assert FF.LAUNCHES["fm_front"] == before + 1
+    assert z.shape == (chunks * SPEC.chunk_complex // SPEC.decim,)
+    assert _snr_db(zr.cpu(), z.cpu()) >= 100.0
+    torch.testing.assert_close(c, cr, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("m,offset", [(4099, 0), (40_003, 2), (127, 6)])
+def test_fm_front_kernel_unaligned_and_ragged(capture, dev, m, offset):
+    """Outputs not a whole number of rows or stages, input 2 or 6 bytes off
+    16-byte alignment (the scalar staging path), a history that is not
+    x255 integers (the residual path)."""
+    taps, _ = FF.make_kernel_params(device=dev)
+    buf = torch.from_numpy(np.tile(capture, 2)).to(dev)
+    block = buf[offset:offset + 2 * SPEC.decim * m]
+    rng = np.random.default_rng(m)
+    carry = FF.init_carry(dev)
+    carry[:2] = torch.from_numpy(rng.uniform(-255, 255, (2, 128)).astype(
+        np.float32)).to(dev)
+    z, c = FF.fm_front(block, 3, carry, taps, SPEC.decim)
+    zr, cr = FF.fm_front_reference(block, 3, carry, taps, SPEC.decim)
+    assert _snr_db(zr.cpu(), z.cpu()) >= 100.0
+    torch.testing.assert_close(c, cr, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("L,decim", [(40, 3), (129, 1), (33, 11), (72, 20)])
+def test_fm_front_kernel_other_shapes(capture, dev, L, decim):
+    """The generic form: band depths over 8 k-steps, other halos and row
+    strides; taps that are sums of two bf16."""
+    rng = np.random.default_rng(L)
+    w = torch.from_numpy(rng.standard_normal(L).astype(np.float32)) / (L * 255)
+    hi = w.to(torch.bfloat16).float()
+    taps = (hi + (w - hi).to(torch.bfloat16).float()).to(dev)
+    n = decim * 30_001
+    data = torch.from_numpy(np.tile(capture, 5)[:2 * n]).to(dev)
+    _, carry = FF.fm_front_reference(data[-2 * decim * 300:], 0,
+                                     FF.init_carry(dev), taps, decim)
+    z, c = FF.fm_front(data, 2, carry, taps, decim)
+    zr, cr = FF.fm_front_reference(data, 2, carry, taps, decim)
+    assert _snr_db(zr.cpu(), z.cpu()) >= 100.0
+    torch.testing.assert_close(c, cr, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("frames", [1, 3, 256, 24_576])
 def test_fm_resample_kernel_matches_plain(capture, dev, frames):
     taps, h_poly = FF.make_kernel_params(device=dev)
-    z, _ = FF.fm_front_reference(torch.from_numpy(capture).to(dev), 0,
-                                 FF.init_carry(dev), taps, SPEC.decim)
+    z, _ = FF.fm_front_reference(torch.from_numpy(
+        np.tile(capture, 96)).to(dev), 0, FF.init_carry(dev), taps,
+        SPEC.decim)
     z = z[:frames * SPEC.down].contiguous()
     hist = torch.linspace(-0.5, 0.5, SPEC.taps_per_phase - 1, device=dev)
     before = FF.LAUNCHES["fm_resample"]
@@ -95,6 +150,28 @@ def test_fm_resample_kernel_matches_plain(capture, dev, frames):
     ar, hr = FF.resample_reference(z, hist, h_poly, SPEC.down)
     assert FF.LAUNCHES["fm_resample"] == before + 1
     assert a.shape == (frames * SPEC.up,)
+    assert _snr_db(ar.cpu(), a.cpu()) >= 100.0
+    assert torch.equal(h, hr)
+
+
+@pytest.mark.parametrize("up,down,T,frames", [(16, 85, 48, 1), (3, 7, 5, 999),
+                                              (2, 1, 48, 40)])
+def test_fm_resample_kernel_offsets_and_shapes(dev, up, down, T, frames):
+    """z and the audio 4 bytes off 16-byte alignment (the shifted staging
+    and scalar stores), and other ratios (the generic form), including
+    calls shorter than the history."""
+    rng = np.random.default_rng(up)
+    buf = torch.from_numpy(rng.standard_normal(frames * down + 1).astype(
+        np.float32)).to(dev)
+    z = buf[1:]
+    hist = torch.from_numpy(rng.standard_normal(T - 1).astype(np.float32)
+                            ).to(dev)
+    h_poly = torch.from_numpy(rng.standard_normal((up, T)).astype(
+        np.float32)).to(dev)
+    out = torch.empty(frames * up + 1, device=dev)[1:]
+    a, h = FF.resample(z, hist, h_poly, down, out=out)
+    ar, hr = FF.resample_reference(z, hist, h_poly, down)
+    assert a.data_ptr() == out.data_ptr()
     assert _snr_db(ar.cpu(), a.cpu()) >= 100.0
     assert torch.equal(h, hr)
 

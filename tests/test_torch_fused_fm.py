@@ -7,6 +7,8 @@ kernels against these plain versions are in tests/test_torch_cuda.py.
 Captures are 2 chunks of 130,560 bytes, as in tests/test_pallas_fm.py.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,9 +17,12 @@ import torch
 from tpu_sdr.models import wbfm as JW
 from tpu_sdr.ops import pallas_fm
 from tpu_sdr.utils import synth
-from tpu_sdr_torch import convert
+from tpu_sdr_torch import convert, kernels
 from tpu_sdr_torch.models import wbfm as TW
+from tpu_sdr_torch.ops import fm as F
 from tpu_sdr_torch.ops import fused_fm as FF
+
+import chip_variants
 
 torch.set_num_threads(1)
 
@@ -219,6 +224,139 @@ def test_cpu_tensors_take_the_plain_versions(capture):
     assert FF.LAUNCHES == {"fm_front": 0, "fm_resample": 0}
 
 
+# ---- part 3: K1's tensor-core tiling, emulated in plain torch -------------
+
+def _f16(x):
+    return x.to(torch.float16).to(torch.float32)
+
+
+def _fm_front_tiled(data_u8, phase, carry, taps, decim):
+    """Plain-torch emulation of csrc/fm_front.cu's arithmetic: rows of 8
+    outputs over the rotated x255 samples in f16 (exact; row g starts at
+    8dg - (L-1) - delta), one (16 ks x 8) band scaled by 2^e and split into
+    f16 hi + lo; zero bytes (x = -255, rotated) before the block, their
+    windows swapped for the carry's f32 history; every predecessor the
+    band's own previous output (the kernel's tiles recompute the group
+    before them), output 0's the carry's."""
+    n, L, d = data_u8.numel() // 2, taps.numel(), decim
+    M = n // d
+    delta = (1 - L) % 8
+    ks = max(8, -(-(delta + 7 * d + L) // 16))
+    x = data_u8.reshape(n, 2).to(torch.float32) * 2.0 - 255.0
+    re, im, _ = F.rotate_fs4(x[:, 0], x[:, 1], phase)
+    zero_re, zero_im, _ = F.rotate_fs4(torch.full((4,), -255.0),
+                                       torch.full((4,), -255.0), 0)
+
+    def stream(k):  # the staged samples; zero bytes outside the block
+        inside = (k >= 0) & (k < n)
+        rot = (k + phase) % 4
+        out = torch.stack([zero_re[rot], zero_im[rot]])
+        out[0, inside], out[1, inside] = re[k[inside]], im[k[inside]]
+        return _f16(out)
+
+    e = 15 - int(np.frexp(float(taps.abs().max()))[1])
+    s = torch.arange(16 * ks)
+    j = s[:, None] - delta - d * torch.arange(8)[None, :]
+    band = torch.where((j >= 0) & (j < L), taps[j.clamp(0, L - 1)], 0.0) * 2.0 ** e
+    hi = _f16(band)
+    lo = _f16(band - hi)
+    groups = -(-M // 8)
+    rows = 8 * d * torch.arange(groups)[:, None] - (L - 1) - delta + s[None]
+    A = stream(rows.reshape(-1)).reshape(2, groups, 16 * ks)
+    y = (A @ hi + A @ lo).reshape(2, -1)[:, :M] * 2.0 ** -e  # (re/im, M)
+
+    for m in range(min(M, -(-(L - 1) // d))):  # windows into the history
+        k = d * m - (L - 1) + torch.arange(L)
+        h = k < 0
+        garbage = stream(k[h])
+        y[:, m] += (carry[:2, (L - 1) + k[h]] - garbage) @ taps[h]
+
+    pred = torch.cat([carry[2:4, LANES - 1:], y[:, :-1]], dim=1)
+    c_re = y[0] * pred[0] + y[1] * pred[1]
+    c_im = y[1] * pred[0] - y[0] * pred[1]
+    z = FF.atan2_poly6(c_im, c_re) * (1.0 / np.pi)
+    new = carry.clone()
+    xr = torch.cat([carry[0, :L - 1], re])
+    xi = torch.cat([carry[1, :L - 1], im])
+    new[0, :L - 1], new[1, :L - 1] = xr[n:], xi[n:]
+    new[2:4] = torch.cat([carry[2:4], y], dim=1)[:, -LANES:]
+    return z, new
+
+
+LANES = FF.LANES
+
+
+def _assert_front_equal(z, c, z_ref, c_ref):
+    assert z.shape == z_ref.shape
+    snr = _snr_db(z_ref.numpy(), z.numpy())
+    assert snr >= 100.0, f"tiled K1 vs plain: {snr:.1f} dB"
+    assert torch.equal(c[:2], c_ref[:2])
+    np.testing.assert_allclose(c[2:].numpy(), c_ref[2:].numpy(), rtol=1e-5,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("phase", [0, 1, 2, 3])
+def test_tiled_fm_front_matches_plain_and_pallas(capture, jax_params,
+                                                 mid_stream, phase):
+    """Two chunks (21,760 outputs: 181.3 warp tiles of 120)
+    from a mid-stream carry, at every phase: against the plain version and,
+    through the plain resampler, the interpreted Pallas kernel."""
+    w_hi, w_lo, v = jax_params
+    state, hist = mid_stream
+    taps, h_poly = FF.make_kernel_params(device=CPU)
+    data = torch.from_numpy(capture)
+    carry = torch.from_numpy(_f32(state))
+    z, c = _fm_front_tiled(data, phase, carry, taps, SPEC.decim)
+    _assert_front_equal(z, c, *FF.fm_front_reference(data, phase, carry, taps,
+                                                     SPEC.decim))
+
+    audio, new_state, _ = pallas_fm.demodulate_fused(
+        jnp.asarray(pallas_fm.view_u8_as_i16(capture, JSPEC)),
+        jnp.asarray([phase], jnp.int32), state, hist, w_hi, w_lo, v, JSPEC,
+        interpret=True, rot_impl="broadcast", unpack_impl="scale")
+    got, _ = FF.resample_reference(z, torch.from_numpy(_f32(hist)), h_poly,
+                                   SPEC.down)
+    assert _snr_db(_f32(audio), got.numpy()) >= 100.0
+    np.testing.assert_allclose(c.numpy(), _f32(new_state), rtol=1e-5,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("outputs", [50, 127, 1000, 4099])
+def test_tiled_fm_front_ragged_calls(capture, outputs):
+    """Fewer outputs than the carry's 128 lanes, partial rows of 8 and
+    partial tiles, from a carry whose history is not x255 integers (the
+    residual path)."""
+    taps, _ = FF.make_kernel_params(device=CPU)
+    data = torch.from_numpy(capture[:2 * SPEC.decim * outputs])
+    rng = np.random.default_rng(outputs)
+    carry = FF.init_carry(CPU)
+    carry[:2] = torch.from_numpy(rng.uniform(-255, 255, (2, LANES))
+                                 .astype(np.float32))
+    carry[2:] = torch.from_numpy(rng.uniform(-1, 1, (2, LANES))
+                                 .astype(np.float32))
+    z, c = _fm_front_tiled(data, 3, carry, taps, SPEC.decim)
+    _assert_front_equal(z, c, *FF.fm_front_reference(data, 3, carry, taps,
+                                                     SPEC.decim))
+
+
+@pytest.mark.parametrize("L,decim", [(40, 3), (129, 1), (33, 11)])
+def test_tiled_fm_front_other_shapes(capture, L, decim):
+    """Other tap counts and decimations (the kernel's generic form: other
+    row shifts, halos and band depths) with taps that are sums of two
+    bf16, as make_kernel_params gives them."""
+    rng = np.random.default_rng(L)
+    w = torch.from_numpy(rng.standard_normal(L).astype(np.float32)) / (L * 255)
+    hi = w.to(torch.bfloat16).to(torch.float32)
+    taps = hi + (w - hi).to(torch.bfloat16).to(torch.float32)
+    n = decim * 3001
+    data = torch.from_numpy(capture[:2 * n])
+    _, carry = FF.fm_front_reference(torch.from_numpy(capture[-2 * n:]), 1,
+                                     FF.init_carry(CPU), taps, decim)
+    z, c = _fm_front_tiled(data, 2, carry, taps, decim)
+    _assert_front_equal(z, c, *FF.fm_front_reference(data, 2, carry, taps,
+                                                     decim))
+
+
 @pytest.mark.parametrize("nbytes,phase", [(2 * 6 * 10 + 2, 0), (3, 0),
                                           (2 * 6 * 10, 4)])
 def test_fm_front_rejects_bad_arguments(nbytes, phase):
@@ -254,3 +392,15 @@ def test_small_calls_match_one_big_call(capture):
                                rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(carry.numpy(), c_all.numpy(), rtol=1e-5,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("name", sorted(chip_variants.VARIANTS))
+def test_chip_variants_patches_match_the_kernel_sources(name):
+    """chip_variants.py's text patches of K1 and K2 each match the source
+    they patch exactly once, so an edit of a kernel shows here, not first
+    on the card."""
+    _, fname, patches = chip_variants.VARIANTS[name]
+    with open(os.path.join(kernels.SRC_DIR, fname)) as f:
+        src = f.read()
+    for old, _ in patches:
+        assert src.count(old) == 1, (name, old)

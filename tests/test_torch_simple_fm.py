@@ -1,7 +1,8 @@
 """tpu_sdr_torch.apps.simple_fm on the CPU, and the port's freedom from jax.
 
-The CLI runs in file mode with ``--torch-device cpu`` (the plain PyTorch
-versions of the kernels) and must recover the capture's 1 kHz tone; a
+The CLI runs with ``--torch-device cpu`` (the plain PyTorch versions of
+the kernels) from a capture file, a fake dongle opened through the port's
+own api, and an rtl_tcp server, and must recover the 1 kHz tone; a
 subprocess with ``TPU_SDR_PLATFORM`` unset runs the whole slice and must
 never import jax — the machine with the GPU has none.
 """
@@ -98,3 +99,60 @@ print("JAX_LOADED", "jax" in sys.modules)
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "JAX_LOADED False" in proc.stdout, proc.stdout + proc.stderr
+
+
+def _pcm_of(argv, capsysbinary):
+    pcm = _run(argv, capsysbinary).astype(np.float64)
+    assert len(pcm) > 20_000
+    return synth.tone_snr(pcm, 1_000.0, 32_000, skip=4000)
+
+
+@pytest.mark.parametrize("mode", ["fused", "fir"])
+def test_cli_live_dongle_through_the_port_api(capsysbinary, mode):
+    """A fake dongle synthesising a station, opened by the port's own api
+    and fed by its own BlockFeeder: the 1 kHz tone survives."""
+    from tpu_sdr_torch.control import fake
+
+    fake.clear_fake_devices()
+    fake.register_fake_device(fake.FakeDeviceSpec(
+        serial="live0001",
+        source_factory=lambda: fake.SynthFmSource(capture_rate=1_020_000)))
+    try:
+        snr = _pcm_of(["--mode", mode, "--blocks", "6", "--torch-device",
+                       "cpu"], capsysbinary)
+    finally:
+        fake.clear_fake_devices()
+    assert snr > 20, f"tone lost on the live path: {snr:.1f} dB"
+
+
+def test_cli_rtl_tcp_source_from_the_jax_server(capsysbinary):
+    """The port's rtl_tcp client against the JAX package's server on a
+    synthesising fake dongle, over a real socket."""
+    import threading
+    import time
+
+    from tpu_sdr import api
+    from tpu_sdr.control import fake
+    from tpu_sdr.stream.rtl_tcp_server import RtlTcpServer
+
+    fake.clear_fake_devices()
+    fake.register_fake_device(fake.FakeDeviceSpec(
+        serial="tcp00001",
+        source_factory=lambda: fake.SynthFmSource(capture_rate=1_020_000)))
+    sdr = api.RtlSdr.open_with_index(0)
+    srv = RtlTcpServer(sdr, "127.0.0.1", 0, queue_limit=32)
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    deadline = time.time() + 5
+    while srv.bound_port is None and time.time() < deadline:
+        time.sleep(0.01)
+    try:
+        snr = _pcm_of(["--tcp", f"127.0.0.1:{srv.bound_port}", "--mode",
+                       "fused", "--blocks", "6", "--torch-device", "cpu"],
+                      capsysbinary)
+    finally:
+        srv.stop()
+        t.join(timeout=5)
+        sdr.close()
+        fake.clear_fake_devices()
+    assert snr > 20, f"tone lost over the tcp path: {snr:.1f} dB"

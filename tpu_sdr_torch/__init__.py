@@ -2,11 +2,12 @@
 
 The JAX package ``tpu_sdr`` stays the reference; this package holds the
 same receive chains in PyTorch, with its TPU kernels rewritten by hand as
-CUDA C++ for Hopper (``csrc/``).  It imports ``torch`` and never ``jax``:
-it reuses only the jax-free host modules of ``tpu_sdr`` (filter design,
-synthetic captures, the native s16 conversion, the feeder and the device
-control plane).  Keep ``TPU_SDR_PLATFORM`` unset when importing it: that
-variable makes ``tpu_sdr/__init__.py`` load JAX.
+CUDA C++ for Hopper (``csrc/``).  It imports ``torch`` and never ``jax``,
+nor anything of ``tpu_sdr``: it keeps its own copies of the host layer it
+runs on (filter design ``utils.firdes``, synthetic captures ``utils.synth``,
+``utils.profiling.BlockStats``, the s16 conversion ``native``, the feeder
+``stream.feeder`` and the device control plane ``api``, ``errors``,
+``control``), under the JAX package's module names.
 
 Ported so far: the single-station WBFM receive path, as the f32 float
 chain (``models.wbfm``) and as the fused two-kernel chain
@@ -16,3 +17,5 @@ or the K3 channelizer (``ops.channelizer``, ``ops.fused_channelizer``),
 behind ``python -m tpu_sdr_torch.apps.multi_fm``; and the sharded (dp, sp)
 receive chains with the K4/K5 halo exchange (``parallel``).
 """
+
+DEFAULT_BUF_LENGTH = 16 * 16384  # bytes per sync-read block (ref src/lib.rs:25)

@@ -50,10 +50,10 @@ def main(argv=None) -> int:
 
     import torch
 
-    from tpu_sdr.native import f32_to_s16
-    from tpu_sdr.utils.profiling import BlockStats
     from tpu_sdr_torch.device import resolve_device
     from tpu_sdr_torch.models import wbfm_wideband as wb
+    from tpu_sdr_torch.native import f32_to_s16
+    from tpu_sdr_torch.utils.profiling import BlockStats
 
     device = resolve_device(args.torch_device)
     channels = tuple(int(c) for c in args.channels.split(","))

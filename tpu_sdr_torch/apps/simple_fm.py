@@ -2,9 +2,9 @@
 stdout, the port of ``tpu_sdr.apps.simple_fm``.
 
 Reads a raw u8 I/Q capture (``--file``), a remote rtl_tcp server
-(``--tcp``) or a local dongle, through the JAX package's framework-free
-host code (``output``, ``process_loop``, ``run_file``, the feeder and the
-device control plane), and demodulates on a CUDA device:
+(``--tcp``) or a local dongle, through the port's own host layer (the
+file loop and demod loop below, ``stream.feeder``, the device control
+plane ``api``), and demodulates on a CUDA device:
 
   fir    the float32 chain in plain PyTorch (default, as in the JAX CLI)
   fused  the two hand-written CUDA kernels (fm_front -> fm_resample)
@@ -22,11 +22,14 @@ import logging
 import sys
 import threading
 
-from tpu_sdr import DEFAULT_BUF_LENGTH
-from tpu_sdr.apps.simple_fm import (FREQUENCY, SAMPLE_RATE, process_loop,
-                                    run_file)
+import numpy as np
+
+from tpu_sdr_torch import DEFAULT_BUF_LENGTH
 
 log = logging.getLogger("simple_fm")
+
+FREQUENCY = 94_900_000  # Hz (ref simple_fm.rs:25)
+SAMPLE_RATE = 170_000  # demod rate (ref simple_fm.rs:26)
 
 PORTED_MODES = ("fir", "fused")
 UNPORTED_MODES = ("exact", "boxcar", "stereo")
@@ -36,7 +39,7 @@ def make_demodulator(mode: str, device):
     """Return (demod_fn(u8 block) -> np s16 audio, description)."""
     import torch
 
-    from tpu_sdr.native import f32_to_s16
+    from tpu_sdr_torch.native import f32_to_s16
 
     if mode == "fused":
         from tpu_sdr_torch.ops.fused_fm import FusedWbfmStreamer
@@ -57,6 +60,46 @@ def make_demodulator(mode: str, device):
         return f32_to_s16(streamer.demodulate(buf))
 
     return demod, f"{desc}, {device}"
+
+
+def output(buf: np.ndarray) -> None:
+    """Raw s16-LE to stdout (ref simple_fm.rs:430-438)."""
+    sys.stdout.buffer.write(np.asarray(buf, dtype="<i2").tobytes())
+    sys.stdout.buffer.flush()
+
+
+def process_loop(demod, feeder, shutdown: threading.Event,
+                 max_blocks: int = 0):
+    """Demod loop with running-average timing (ref process,
+    simple_fm.rs:135-170).  The receive side is the feeder's reader thread
+    (the reference's receive thread, simple_fm.rs:89-132)."""
+    from tpu_sdr_torch.utils.profiling import BlockStats
+
+    stats = BlockStats()
+    for data in feeder.blocks():
+        if shutdown.is_set():
+            break
+        with stats.block(len(data) // 2):
+            audio = demod(data)
+        output(audio)
+        if max_blocks and stats.blocks >= max_blocks:
+            break
+    stats.drop(feeder.dropped)
+    if stats.blocks:
+        log.info("Average processing time: %.2fms (%d loops); %s",
+                 stats.avg_block_ms, stats.blocks, stats.summary())
+
+
+def run_file(path: str, demod) -> None:
+    """File mode (ref simple_fm.rs:65-84)."""
+    with open(path, "rb") as f:
+        while True:
+            chunk = f.read(DEFAULT_BUF_LENGTH)
+            if len(chunk) < 16:
+                break
+            usable = len(chunk) - (len(chunk) % 16)
+            audio = demod(np.frombuffer(chunk[:usable], dtype=np.uint8))
+            output(audio)
 
 
 def main(argv=None) -> int:
@@ -100,10 +143,10 @@ def main(argv=None) -> int:
         run_file(args.file, demod)
         return 0
 
-    from tpu_sdr.stream.feeder import BlockFeeder
+    from tpu_sdr_torch.stream.feeder import BlockFeeder
 
     if args.tcp:
-        from tpu_sdr.stream.feeder import RtlTcpClientSource
+        from tpu_sdr_torch.stream.feeder import RtlTcpClientSource
 
         host, _, port = args.tcp.rpartition(":")
         src = RtlTcpClientSource(host or "127.0.0.1", int(port))
@@ -113,8 +156,8 @@ def main(argv=None) -> int:
         log.info("Streaming from rtl_tcp://%s, tuned to %d Hz at %d S/s",
                  args.tcp, radio.capture_freq, radio.capture_rate)
     else:
-        from tpu_sdr.api import DeviceId, RtlSdr, TunerGain
-        from tpu_sdr.stream.feeder import DeviceSource
+        from tpu_sdr_torch.api import DeviceId, RtlSdr, TunerGain
+        from tpu_sdr_torch.stream.feeder import DeviceSource
 
         sdr = RtlSdr.open(DeviceId.index(args.device))
         sdr.set_tuner_gain(TunerGain.AUTO)

@@ -11,104 +11,272 @@
 // frame-major, exactly the order of the TPU kernel and aligned_resample.
 // The new history is xe's last T-1 samples.
 //
-// The TPU form multiplies (frames, down+T-1) by a mostly-zero (387, 64)
-// matrix in three bf16 passes; here each thread computes one output as a
-// T-term f32 dot, 48 FMA per 4 bytes written, reading 85/16 ≈ 5.3 input
-// floats per output, so its floor is memory bandwidth.  A block stages its
-// frames' input span and the (up, T) filter bank in shared memory; the
-// bank's rows are padded to an odd stride so the 16 phases of a warp fall
-// in different banks.  Measured on an H100 80GB HBM3 at its 700 W limit, a
-// 25 MB block's z (8.4 MB) takes ~0.027 ms, ~11% of HBM bandwidth: the
-// 48-deep dependent FMA chain per thread is the likely bound, and at the
-// CLI's 262 KB reads only 16 blocks run (launch- and occupancy-bound).
-// Fusing this stage into K1's output, so z never reaches device memory, is
-// later work.
+// Bound.  A 25 MB block's z (2,088,960 f32, 8.4 MB) in and 1.6 MB of audio
+// out: 2.96 us at 3.35 TB/s against 0.56 us of f32 FMA, so the work is
+// getting bytes in flight.  The first port's form (one output a thread, a
+// 48-deep dependent FMA chain with two shared-memory loads an FMA, 1,536
+// short blocks each re-staging the bank) took 0.027 ms.
+//
+// Design (default 16/85, T = 48; other shapes run the same structure with
+// runtime bounds).  Blocks are persistent: each stages the bank once into
+// shared memory and walks tiles of 128 frames, the next tile's input span
+// in flight by cp.async 16-byte copies (two buffers) while the current one
+// is computed.  Four threads share a frame, each owning 4 consecutive
+// phases: 4 independent accumulators over the part of the frame's window
+// those phases reach (~64 samples), read from shared memory once (a warp's
+// lanes are 32 frames, 85 floats apart: no bank conflicts), and the bank
+// read as float4 broadcasts (a warp's phases are uniform) from rows laid
+// out so that four consecutive samples meet four consecutive taps (every
+// row reversed, offset by o_s mod 4, zero-padded).  Each thread writes one
+// float4 of the frame-major output; 16 warps a block keep the SM busy.
+//
+// A 25 MB block is 192 tiles, one wave of blocks: each block takes one
+// tile, so the walk and the second buffer engage only on longer inputs.
+// Measured (PERF.md; chip_variants.py): making blocks walk 2 to 4 tiles of
+// this block (fewer blocks, or 32-frame tiles) is no faster or slower, and
+// so was a form whose warps each waited only for their own 32 frames' part
+// of the span.  A device-to-device copy of the same 9.9 MB, and K2 with
+// its arithmetic taken out, each take most of K2's time as a lone launch:
+// what bounds it is the memory system at this size (one wave, ~3 us of
+// bytes) and a launch's fixed cost, not its arithmetic.  Fusing K2 into K1's epilogue (z never leaving the
+// SM) removes its launch and its reads.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-// blockDim.x = up * frames per block; thread (f, s) computes frame r0+f,
-// output s.
-__global__ void fm_resample_kernel(const float* __restrict__ z, long long n_z,
-                                   const float* __restrict__ hist,
-                                   const float* __restrict__ h_poly, int up,
-                                   int down, int T, float* __restrict__ audio,
-                                   float* __restrict__ hist_out) {
-  extern __shared__ float smem[];
-  const int B = blockDim.x;
+constexpr int kUp = 16, kDown = 85, kTaps = 48;   // the fast form
+constexpr int kRow = 60;            // padded bank row: u in [-4, 56)
+constexpr int kWindow = 128;        // samples a frame reads, rounded to 4
+
+struct ResampleArgs {
+  const float* z;
+  long long n_z;
+  const float* hist;
+  const float* h_poly;
+  float* audio;
+  float* hist_out;
+  long long frames;
+  int up, down, T;
+  int tile;        // frames a tile (fast form: a quarter of the threads)
+  int span;        // floats staged a tile, a multiple of 4
+  int bank;        // floats of the bank in shared memory
+  int out16;       // audio is 16-byte aligned
+};
+
+__host__ __device__ constexpr int o_of(int s) { return (s * kDown) / kUp; }
+__host__ __device__ constexpr int p_of(int s) { return (s * kDown) % kUp; }
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ float xe_at(const ResampleArgs& a, long long e) {
+  if (e < 0) return 0.0f;
+  if (e < a.T - 1) return a.hist[e];
+  const long long k = e - (a.T - 1);
+  return k < a.n_z ? a.z[k] : 0.0f;
+}
+
+// Element offset of tile `t`'s first staged float: its xe index is
+// r0*down - shift, chosen so that z's global address is 16-byte aligned
+// at every multiple of 4 in shared memory.
+__device__ __forceinline__ int tile_shift(const ResampleArgs& a, long long t) {
+  const long long e0 = t * a.tile * a.down;
+  const long long word = ((long long)((uintptr_t)a.z >> 2)) + e0 - (a.T - 1);
+  return (int)(word & 3);
+}
+
+// Stage tile t's span into buf: 16-byte cp.async where the four floats
+// are all of z, else one by one (the history, the stream's end).
+__device__ void issue(const ResampleArgs& a, long long t, float* buf) {
+  const int shift = tile_shift(a, t);
+  const long long e0 = t * a.tile * a.down - shift;
+  for (int j = 4 * threadIdx.x; j < a.span; j += 4 * blockDim.x) {
+    const long long k = e0 + j - (a.T - 1);  // z index of buf[j]
+    if (k >= 0 && k + 4 <= a.n_z) {
+      cp_async16(buf + j, a.z + k);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) buf[j + q] = xe_at(a, e0 + j + q);
+    }
+  }
+}
+
+// Outputs 4Q..4Q+3 of the frame whose window starts at x: the window's
+// samples i meet bank columns u = i - o_s, four at a time; blocks no
+// output of the quad reaches are dropped at compile time.
+template <int Q>
+__device__ __forceinline__ float4 frame_quad(const float* x,
+                                             const float* bank) {
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < kWindow; i += 4) {
+    if (i + 3 >= o_of(4 * Q) && i < o_of(4 * Q + 3) + kTaps) {
+      const float x0 = x[i], x1 = x[i + 1], x2 = x[i + 2], x3 = x[i + 3];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int s = 4 * Q + q;
+        const int u0 = i - o_of(s);  // x[i + j] meets u = u0 + j
+        if (u0 + 3 >= 0 && u0 < kTaps) {
+          const float4 w = *reinterpret_cast<const float4*>(
+              bank + s * kRow + u0 + 4 + (o_of(s) & 3));
+          acc[q] = fmaf(w.x, x0, acc[q]);
+          acc[q] = fmaf(w.y, x1, acc[q]);
+          acc[q] = fmaf(w.z, x2, acc[q]);
+          acc[q] = fmaf(w.w, x3, acc[q]);
+        }
+      }
+    }
+  }
+  return make_float4(acc[0], acc[1], acc[2], acc[3]);
+}
+
+// Fast form: 4 threads a frame (warp w computes outputs 4(w%4)..+3 of 32
+// frames); generic form: a thread a frame.
+template <bool FAST>
+__global__ void __launch_bounds__(512, 2)
+fm_resample_kernel(const __grid_constant__ ResampleArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  float* bank = smem;
+  float* bufs = smem + a.bank;  // two tiles of a.span floats
   const int tid = threadIdx.x;
-  const int frames_per_block = B / up;
-  const int stride = T | 1;  // odd row stride: no bank conflicts across phases
-  float* hp = smem;
-  float* xs = hp + up * stride;
-  const int span = frames_per_block * down + T - 1;
+  const long long tiles = (a.frames + a.tile - 1) / a.tile;
+  long long t = blockIdx.x;
+  if (t < tiles) issue(a, t, bufs);
+  asm volatile("cp.async.commit_group;\n" ::);
 
-  const long long frames = n_z / down;
-  const long long r0 = (long long)blockIdx.x * frames_per_block;
-
-  for (int i = tid; i < up * T; i += B) {
-    hp[(i / T) * stride + i % T] = h_poly[i];
-  }
-  for (int i = tid; i < span; i += B) {
-    const long long e = r0 * down + i;  // index into xe
-    float v = 0.0f;
-    if (e < T - 1) {
-      v = hist[e];
-    } else if (e - (T - 1) < n_z) {
-      v = z[e - (T - 1)];
+  // the bank, once: fast form rows g_s[u] = h[p_s][47 - u] at column
+  // u + 4 + (o_s & 3), zero elsewhere; generic form h_poly as it is
+  if constexpr (FAST) {
+    for (int i = tid; i < kUp * kRow; i += blockDim.x) {
+      const int s = i / kRow, v = i % kRow;
+      const int u = v - 4 - (o_of(s) & 3);
+      bank[i] = (u >= 0 && u < kTaps) ? a.h_poly[p_of(s) * kTaps + kTaps - 1 - u]
+                                      : 0.0f;
     }
-    xs[i] = v;
+  } else {
+    for (int i = tid; i < a.up * a.T; i += blockDim.x) bank[i] = a.h_poly[i];
   }
-  __syncthreads();
-
-  const int f = tid / up;
-  const int s = tid - f * up;
-  const long long r = r0 + f;
-  if (f < frames_per_block && r < frames) {
-    const int o = (s * down) / up;
-    const int p = (s * down) % up;
-    const float* x = xs + f * down + (T - 1) + o;
-    const float* h = hp + p * stride;
-    float acc = 0.0f;
-    for (int t = 0; t < T; ++t) acc = fmaf(h[t], x[-t], acc);
-    audio[r * up + s] = acc;
-  }
-
-  if (blockIdx.x == gridDim.x - 1) {
-    for (int i = tid; i < T - 1; i += B) {
-      const long long e = n_z + i;
-      hist_out[i] = e < T - 1 ? hist[e] : z[e - (T - 1)];
+  if (blockIdx.x == 0) {
+    for (int i = tid; i < a.T - 1; i += blockDim.x) {
+      const long long e = a.n_z + i;
+      a.hist_out[i] = e < a.T - 1 ? a.hist[e] : a.z[e - (a.T - 1)];
     }
   }
+
+  const int f = FAST ? (tid >> 7 << 5) | (tid & 31) : tid;  // frame of tile
+  const int quad = (tid >> 5) & 3;
+  int cur = 0;
+  for (; t < tiles; t += gridDim.x, cur ^= 1) {
+    if (t + gridDim.x < tiles) issue(a, t + gridDim.x, bufs + (cur ^ 1) * a.span);
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 1;\n" ::);
+    __syncthreads();
+
+    const long long r = t * a.tile + f;
+    if (f < a.tile && r < a.frames) {
+      const float* x = bufs + cur * a.span + tile_shift(a, t) + f * a.down;
+      if constexpr (FAST) {
+        float4 v;
+        switch (quad) {
+          case 0: v = frame_quad<0>(x, bank); break;
+          case 1: v = frame_quad<1>(x, bank); break;
+          case 2: v = frame_quad<2>(x, bank); break;
+          default: v = frame_quad<3>(x, bank); break;
+        }
+        float* out = a.audio + r * kUp + 4 * quad;
+        if (a.out16) {
+          *reinterpret_cast<float4*>(out) = v;
+        } else {
+          out[0] = v.x;
+          out[1] = v.y;
+          out[2] = v.z;
+          out[3] = v.w;
+        }
+      } else {
+        for (int s = 0; s < a.up; ++s) {
+          const int o = (int)(((long long)s * a.down) / a.up);
+          const int p = (int)(((long long)s * a.down) % a.up);
+          const float* h = bank + p * a.T;
+          const float* xs = x + (a.T - 1) + o;
+          float acc = 0.0f;
+          for (int k = 0; k < a.T; ++k) acc = fmaf(h[k], xs[-k], acc);
+          a.audio[r * a.up + s] = acc;
+        }
+      }
+    }
+    __syncthreads();
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+template <bool FAST>
+int launch(const ResampleArgs& a, size_t smem, cudaStream_t stream) {
+  auto kernel = fm_resample_kernel<FAST>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = FAST ? 4 * a.tile : (a.tile + 31) / 32 * 32;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess) {
+    return (int)err;
+  }
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, threads, smem)) != cudaSuccess) {
+    return (int)err;
+  }
+  const long long tiles = (a.frames + a.tile - 1) / a.tile;
+  long long grid = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  if (grid > tiles) grid = tiles;
+  kernel<<<(unsigned)grid, threads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches K2 on `stream`.  z: n_z f32 (n_z % down == 0); hist and
-// hist_out: distinct T-1 f32; h_poly: (up, T) f32; audio: n_z/down*up f32.
-// Returns 0 or the CUDA error of the launch.
+// Launches K2 on `stream`.  z: n_z f32 (n_z % down == 0, 4-byte aligned);
+// hist and hist_out: distinct T-1 f32; h_poly: (up, T) f32; audio:
+// n_z/down*up f32.  Returns 0 or the CUDA error of the launch.
 int tsdr_fm_resample(const float* z, long long n_z, const float* hist,
                      const float* h_poly, int up, int down, int T,
                      float* audio, float* hist_out, void* stream) {
-  if (n_z <= 0 || up <= 0 || down <= 0 || T < 1 || n_z % down != 0 ||
-      up > 256) {
+  if (n_z <= 0 || up <= 0 || down <= 0 || T < 1 || n_z % down != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const int frames_per_block = 256 / up;
-  const int block = frames_per_block * up;
-  const long long frames = n_z / down;
-  const long long grid = (frames + frames_per_block - 1) / frames_per_block;
-  const size_t smem =
-      sizeof(float) * ((size_t)up * (T | 1) + frames_per_block * down + T - 1);
-  if (smem > 48 * 1024 || grid > 0x7fffffffLL) {
-    return (int)cudaErrorInvalidValue;
+  ResampleArgs a;
+  a.z = z;
+  a.n_z = n_z;
+  a.hist = hist;
+  a.h_poly = h_poly;
+  a.audio = audio;
+  a.hist_out = hist_out;
+  a.frames = n_z / down;
+  a.up = up;
+  a.down = down;
+  a.T = T;
+  a.out16 = ((uintptr_t)audio % 16) == 0;
+  const bool fast = up == kUp && down == kDown && T == kTaps;
+  a.bank = fast ? kUp * kRow : (up * T + 3) / 4 * 4;
+  const size_t kBudget = 200 * 1024;
+  for (int tile = 128; tile >= 1; tile >>= 1) {
+    // the window of the tile's last frame, the shift, 4-float rounding
+    const long long span = ((long long)tile * down + (fast ? kWindow : T - 1 + down) + 3 + 3) / 4 * 4;
+    const size_t smem = sizeof(float) * ((size_t)a.bank + 2 * (size_t)span);
+    if (smem > kBudget) continue;
+    a.tile = tile;
+    a.span = (int)span;
+    return fast ? launch<true>(a, smem, (cudaStream_t)stream)
+                : launch<false>(a, smem, (cudaStream_t)stream);
   }
-  fm_resample_kernel<<<(unsigned)grid, block, smem, (cudaStream_t)stream>>>(
-      z, n_z, hist, h_poly, up, down, T, audio, hist_out);
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -60,8 +60,8 @@ def find_nvcc() -> str:
                        "toolkit's bin directory on PATH")
 
 
-def _sources() -> list[str]:
-    return sorted(glob.glob(os.path.join(SRC_DIR, "*.cu")))
+def _sources(src_dir: str) -> list[str]:
+    return sorted(glob.glob(os.path.join(src_dir, "*.cu")))
 
 
 def _digest(sources: list[str]) -> str:
@@ -73,14 +73,16 @@ def _digest(sources: list[str]) -> str:
     return h.hexdigest()[:16]
 
 
-def build() -> tuple[str, float, str]:
-    """Compile the sources unless an identical build exists; returns
-    (library path, seconds spent compiling, compiler output)."""
-    sources = _sources()
-    path = os.path.join(BUILD_DIR, f"libtsdr_torch_{_digest(sources)}.so")
+def build(src_dir: str = SRC_DIR, build_dir: str = BUILD_DIR
+          ) -> tuple[str, float, str]:
+    """Compile the ``*.cu`` of ``src_dir`` unless an identical build exists
+    in ``build_dir``; returns (library path, seconds spent compiling,
+    compiler output)."""
+    sources = _sources(src_dir)
+    path = os.path.join(build_dir, f"libtsdr_torch_{_digest(sources)}.so")
     if os.path.exists(path):
         return path, 0.0, ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(build_dir, exist_ok=True)
     tmp = f"{path}.tmp{os.getpid()}"
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
     t0 = time.monotonic()
@@ -93,7 +95,9 @@ def build() -> tuple[str, float, str]:
     return path, seconds, proc.stdout + proc.stderr
 
 
-def _declare(lib: ctypes.CDLL) -> None:
+def bind(path: str) -> ctypes.CDLL:
+    """Load a built library and declare its entry points."""
+    lib = ctypes.CDLL(path)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.tsdr_fm_front.argtypes = [p, ll, i, p, p, i, i, p, p, p]
     lib.tsdr_fm_front.restype = i
@@ -109,6 +113,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tsdr_enable_peer.restype = i
     lib.tsdr_error_string.argtypes = [i]
     lib.tsdr_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def load() -> Library:
@@ -117,9 +122,7 @@ def load() -> Library:
     with _lock:
         if _loaded is None:
             path, seconds, log = build()
-            cdll = ctypes.CDLL(path)
-            _declare(cdll)
-            _loaded = Library(cdll, path, seconds, log)
+            _loaded = Library(bind(path), path, seconds, log)
         return _loaded
 
 

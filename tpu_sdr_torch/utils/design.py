@@ -6,8 +6,8 @@ which load JAX (``tpu_sdr/ops/fm.py``: ``make_banded_decim_matrix``,
 ``tpu_sdr/models/wbfm.py``: ``WbfmConfig``; ``tpu_sdr/models/wbfm_exact.py``:
 ``optimal_settings``; ``tpu_sdr/ops/channelizer.py``: ``design_pfb``,
 ``pfb_mxu_matrices``, ``channel_frequencies``), with the same defaults and
-the same outputs.  The prototype filters come from
-``tpu_sdr.utils.firdes``, imported as is.
+the same outputs.  The prototype filters come from the port's copy of
+``tpu_sdr/utils/firdes.py`` (``tpu_sdr_torch.utils.firdes``).
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from tpu_sdr.utils import firdes
+from tpu_sdr_torch.utils import firdes
 
 
 @dataclass(frozen=True)
