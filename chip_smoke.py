@@ -18,8 +18,9 @@ the ported paths through their user entry points:
   ``tpu_sdr_torch.apps.simple_fm --mode fused`` on a 10.24 s synthetic
   station;
 * wideband: K3 (``pfb_channelize``) against its plain version on a 25 MB
-  block of an 8-station capture at 10.88 Msps (all 64 channels and a
-  16-channel column slice), then ``tpu_sdr_torch.apps.multi_fm --fused``
+  block of an 8-station capture at 10.88 Msps (all 64 channels and the
+  16-channel window from channel 16) and against the float64 PFB on its
+  first 8,192 frames, then ``tpu_sdr_torch.apps.multi_fm --fused``
   on 1.024 s of it, against the plain front,
   and the channel-parallel K3 bank on 4 logical shards of the card;
 * sharded: K4 (``halo_pull``) and K5 (``ring_shift``) against their plain
@@ -36,8 +37,10 @@ the ported paths through their user entry points:
 Each path's launch counts are zeroed just before it runs and read just
 after; the audio is checked (length, tone SNR, agreement with the plain
 PyTorch chain).  The kernels, their plain versions and the one-call
-library yardsticks (K2 and K3 a strided ``conv1d``, K4 a ``cat``, K5 a
-``roll``; K1 has none) are timed with CUDA events, the streamer and the
+library yardsticks (K2 and K3 a strided ``conv1d``, K3 also a batched
+``matmul`` of its unfolded windows, the faster of the two reported; K4 a
+``cat``, K5 a ``roll``; K1 has none) are timed with CUDA events (K3 also
+at the ``multi_fm`` read of 696,320 bytes), the streamer and the
 CLIs with the host clock; each kernel's roofline bound is computed from
 its shapes and the H100's published peaks.
 
@@ -75,6 +78,8 @@ WB_BLOCK_CHUNKS = 288        # x 43,520 complex = the same 25 MB block
 WB_PATH_READS = 32           # x 696,320 bytes = 1.024 s at 10.88 Msps
 WB_READ_BYTES = 696_320
 SNR_STATION_DB = 25.0        # tests/test_wideband.py's bar
+PFB64_FRAMES = 8_192         # K3 against the float64 PFB on these frames
+SNR_PFB64_DB = 130.0         # f32 FIR + FFT against the exact PFB
 SNR_FRONTS_DB = 70.0         # fused vs plain front, tests/test_wideband.py
 
 # sharded: (dp, sp) mesh of logical shards on one card, 2 stations a row
@@ -182,6 +187,24 @@ def run_app(argv: list[str]):
     return pcm
 
 
+def pfb_float64(data, carry, h_poly, spec, frames: int):
+    """The exact PFB of the first ``frames`` frames of ``data`` after the
+    (2H, K) x255 ``carry``, in float64 on the card: the R-tap FIR down the
+    frames of each branch, the K-point DFT across them, / 255.  Returns
+    (frames, 2K) [Y_re | Y_im] as numpy."""
+    import torch
+
+    K, H = spec.num_channels, spec.branch_rows - 1
+    x = data[:2 * K * frames].reshape(frames, K, 2).to(torch.float64) * 2 - 255
+    c = carry.to(torch.float64)
+    ext = torch.cat([torch.complex(c[:H], c[H:]),
+                     torch.complex(x[..., 0], x[..., 1])])
+    G = h_poly.to(torch.float64)
+    fir = sum(G[t] * ext[H - t:H - t + frames] for t in range(H + 1))
+    y = torch.fft.fft(fir, dim=1) / 255.0
+    return torch.cat([y.real, y.imag], dim=1).cpu().numpy()
+
+
 def wideband(dev, flush) -> dict:
     """The wideband path: (a) K3 against its plain version on the 25 MB
     block, (b) ``multi_fm --fused`` on 1.024 s of 8 stations against the
@@ -222,9 +245,10 @@ def wideband(dev, flush) -> dict:
     sliced = FC.kernel_matrix(params.h_poly.cpu().numpy(),
                               slice(16, 32)).to(dev)
     err, snrs = 0.0, {}
-    for local, m2 in ((None, params.kernel_m2), (16, sliced)):
+    for local, c0, m2 in ((None, 0, params.kernel_m2), (16, 16, sliced)):
         sp = spec._replace(local_channels=local)
-        y_re, y_im, c_k = FC.channelize(data, carry, m2, sp)
+        y_re, y_im, c_k = FC.channelize(data, carry, params.kernel_taps, sp,
+                                        channel_offset=c0)
         y_r, c_r = FC.channelize_reference(data, carry, m2, sp)
         torch.cuda.synchronize()
         y_k = torch.cat([y_re, y_im], dim=1)
@@ -237,13 +261,23 @@ def wideband(dev, flush) -> dict:
         require(torch.equal(c_k, c_r), "pfb_channelize: carry differs")
         snrs[sp.out_channels] = s
         err = max(err, e)
-        print(f"pfb_channelize Ko={sp.out_channels}: {s:.1f} dB vs plain, "
-              f"max |dy| {e:.3g} (|y| up to "
+        print(f"pfb_channelize Ko={sp.out_channels} c0={c0}: {s:.1f} dB vs "
+              f"plain, max |dy| {e:.3g} (|y| up to "
               f"{float(y_r.abs().max()):.3g}), carry equal", flush=True)
+        if local is None:
+            s64 = snr_db(pfb_float64(data, carry, params.h_poly, spec,
+                                     PFB64_FRAMES),
+                         y_k[:PFB64_FRAMES].cpu().numpy())
+            require(s64 >= SNR_PFB64_DB, f"pfb_channelize vs float64 PFB: "
+                    f"{s64:.1f} dB < {SNR_PFB64_DB}")
+            snrs["float64"] = s64
+            print(f"pfb_channelize vs the float64 PFB on the first "
+                  f"{PFB64_FRAMES} frames: {s64:.1f} dB", flush=True)
     del y_re, y_im, y_k, y_r
 
-    # the channel-parallel bank: K3 with a 16-channel block of M2 on each
-    # of 4 logical shards of the card, against the plain full-width K3
+    # the channel-parallel bank: K3 with the full taps and a 16-channel
+    # window (c0 = 16 i) on each of 4 logical shards of the card, against
+    # the plain full-width K3
     bank = CSF.make_sharded_pfb_fused(PM.make_mesh(1, 4, devices=[dev] * 4),
                                       K, config.taps_per_branch,
                                       spec.frames_per_chunk)
@@ -329,18 +363,35 @@ def wideband(dev, flush) -> dict:
     def library():
         return torch.nn.functional.conv1d(x_conv, w_conv, stride=K)
 
+    # the second: one batched matmul of the unfolded x255 windows (re and
+    # im a batch of 2, history prepended) by the plain version's M2; the
+    # u8 unpack and the complex recombination are left out of the call
+    x_win = x_conv[0].unfold(1, R * K, K)        # (2, m, R K), a view
+
+    def library_matmul():
+        return torch.matmul(x_win, m2_rev)
+
     y_r, _ = FC.channelize_reference(data, carry, params.kernel_m2, spec)
     s_lib = snr_db(y_r.cpu().numpy(), library()[0].T.cpu().numpy())
-    print(f"pfb_channelize library yardstick (conv1d, stride {K}): "
-          f"{s_lib:.1f} dB vs the plain version", flush=True)
-    del y_r
+    yw = library_matmul()
+    s_mm = snr_db(y_r.cpu().numpy(), torch.cat(
+        [yw[0, :, :Ko] - yw[1, :, Ko:], yw[0, :, Ko:] + yw[1, :, :Ko]],
+        dim=1).cpu().numpy())
+    print(f"pfb_channelize library yardsticks: conv1d (stride {K}) "
+          f"{s_lib:.1f} dB, batched matmul {s_mm:.1f} dB vs the plain "
+          f"version", flush=True)
+    del y_r, yw
+    read = data[:WB_READ_BYTES]
     state = WB.init_state(config, params)
     ms = device_ms({
-        "pfb_channelize_library": library,
+        "pfb_channelize_library_conv1d": library,
+        "pfb_channelize_library_matmul": library_matmul,
         "pfb_channelize_plain": lambda: FC.channelize_reference(
             data, carry, params.kernel_m2, spec),
-        "pfb_channelize": lambda: FC.channelize(data, carry, params.kernel_m2,
-                                                spec),
+        "pfb_channelize": lambda: FC.channelize(data, carry,
+                                                params.kernel_taps, spec),
+        "pfb_channelize_read": lambda: FC.channelize(
+            read, carry, params.kernel_taps, spec),
         "wideband_device": lambda: WB.demodulate_block_fused(
             data, carry, state.quad, state.resamp.hist, params, config, spec),
         "wideband_plain_device": lambda: WB.demodulate_block(
@@ -350,11 +401,21 @@ def wideband(dev, flush) -> dict:
     # R-tap branch filter on each of K branches (complex samples, real
     # taps: 4 R K FLOP) and a K-point DFT (~5 K log2 K); bytes: the u8
     # block, the complex f32 output, the carry both ways, the R K taps
-    m = n_block // K
-    b = bound(2 * n_block + 4 * m * 2 * Ko + 2 * 4 * carry.numel() + 4 * R * K,
-              m * (4 * R * K + 5 * K * math.log2(K)))
+    def k3_bound(m):
+        return bound(2 * m * K + 4 * m * 2 * Ko + 2 * 4 * carry.numel()
+                     + 4 * R * K, m * (4 * R * K + 5 * K * math.log2(K)))
+
+    b = k3_bound(n_block // K)
+    ms["pfb_channelize_library"] = min(ms["pfb_channelize_library_conv1d"],
+                                       ms["pfb_channelize_library_matmul"])
+    b_read = k3_bound(WB_READ_BYTES // (2 * K))
+    print(f"pfb_channelize at the CLI read ({WB_READ_BYTES} bytes, "
+          f"{WB_READ_BYTES // (2 * K)} frames): {ms['pfb_channelize_read']:.4f}"
+          f" ms, bound {b_read['bound_ms']:.5f} ms ({b_read['bound_by']})",
+          flush=True)
     return {"err": err, "snr_db": snrs, "launches": launches, "ms": ms,
-            "bound": b, "library_snr_db": s_lib,
+            "bound": b, "bound_read": b_read,
+            "library_snr_db": {"conv1d": s_lib, "matmul": s_mm},
             "path": {"complex": n_path, "stations": len(WB_CHANNELS),
                      "tone_db": tones, "fused_vs_plain_db": s_fronts,
                      "wall_s": wall, "realtime_x": realtime_x}}
@@ -967,7 +1028,8 @@ def main(argv=None) -> int:
     ms.update(sh["ms"])
     bounds.update(sh["bounds"])
     for name, t in ms.items():
-        rate = ("" if name.startswith(("halo_pull", "ring_shift")) else
+        rate = ("" if name.startswith(("halo_pull", "ring_shift"))
+                or name.endswith("_read") else
                 f" = {BLOCK_COMPLEX / t / 1e3:.1f} Msps")
         print(f"time {name}: {t:.4f} ms{rate} ({smi})", flush=True)
     print(f"halo cost (the sp={SHARD_SP} step's two K4 exchanges): "
@@ -986,7 +1048,7 @@ def main(argv=None) -> int:
               flush=True)
     print("metrics " + json.dumps({
         "card": smi, "block_complex": BLOCK_COMPLEX, "reps": REPS, "ms": ms,
-        "bounds": bounds,
+        "bounds": bounds, "bound_pfb_channelize_read": wb["bound_read"],
         "snr_fm_front_db": snrs, "snr_fm_resample_db": s_rs,
         "snr_ragged_db": {"fm_front": s_front_rag, "fm_resample": s_rs_rag},
         "snr_library_db": {"fm_resample": s_rs_lib,

@@ -1,17 +1,19 @@
 """Where a kernel's time goes: build variants of the kernel sources with one
-part taken out or one size changed, and time them against the kernel as it
-is, on one GPU.  Run from the repository root:
+part taken out, one size changed or one form tried, and time them against
+the kernel as it is, on one GPU.  Run from the repository root:
 
     python3 chip_variants.py
 
 Each variant is a copy of ``tpu_sdr_torch/csrc`` with text patches applied
 (``VARIANTS``; a patch that no longer matches the source fails the run:
 the list follows the sources of the commit it is in), built like the real
-library (all builds at once) and called through the same C entry point on
-the 25 MB block (12,533,760 samples) of random bytes.  A variant that takes
-a part out computes wrong outputs on purpose: only its time means
-something.  ``copy`` is a yardstick, not a kernel: one device-to-device
-copy that moves K2's bytes (half of them read, half written).  Two timings
+library (eight variants at a time) and called through the same C entry point on
+the 25 MB block (12,533,760 samples) of random bytes (K3: 195,840 frames
+of 64 channels, all 64 written).  A variant that takes a part out computes
+wrong outputs on purpose: only its time means something.  ``copy`` is a
+yardstick, not a kernel: one device-to-device copy that moves K2's bytes
+(half of them read, half written); ``copy_k3`` one that moves K3's 125 MB
+(25 MB read, 100 MB written).  Two timings
 of each, both CUDA events, the card's name and power limit printed:
 
 * ``cold``: one launch after the L2 cache is flushed and the stream held
@@ -48,6 +50,19 @@ _K2_TILE32 = ("for (int tile = 128; tile >= 1; tile >>= 1)",
               "for (int tile = 32; tile >= 1; tile >>= 1)")
 
 
+_K3_STORES = ("        if (lane < 2 * q4 && fw + fr < m) {",
+              "        if (lane < 2 * q4 && fw + fr < m && wrows[0] == 12345.0f) {")
+_K3_FFT = ("    dft8(a);                                            // over q: index k1\n"
+           "#pragma unroll\n"
+           "    for (int k1 = 0; k1 < 8; ++k1) a[k1] = cmul(a[k1], wj[k1]);\n"
+           "    transpose8(a, j);                                   // lane j: k1 = j\n"
+           "    dft8(a);                                            // over j: index k2\n",
+           "")
+_K3_FIR = ("        for (int i = 0; i < kFastR; ++i) fir_tap(a, g[i], x[r + kFastR - 1 - i]);",
+           "        a = x[r + kFastR - 1];")
+_K3_TILE8 = ("if ((m + 15) / 16 >= 2LL * sms) {", "if (false) {")
+
+
 def _k2_walk(n: int) -> tuple[str, str]:
     return ("if (grid > tiles) grid = tiles;",
             f"if (grid > (tiles + {n - 1}) / {n}) grid = (tiles + {n - 1}) / {n};")
@@ -76,6 +91,50 @@ VARIANTS = {
     "fm_resample/no_compute": ("fm_resample", "fm_resample.cu", [(
         "        switch (quad) {", "        v = make_float4(x[0], 0.0f, 0.0f, 0.0f);\n"
         "        if (x[1] == 12345.0f) switch (quad) {")]),
+    # K3: each part taken out in turn (without its FIR the history loads
+    # go too; without its stores the rows still return through shared
+    # memory) and together; then the forms tried and dropped, each against
+    # the kernel as it is
+    "pfb_channelize/no_stores": ("pfb_channelize", "pfb_channelize.cu",
+                                 [_K3_STORES]),
+    "pfb_channelize/no_fft": ("pfb_channelize", "pfb_channelize.cu",
+                              [_K3_FFT]),
+    "pfb_channelize/no_fir": ("pfb_channelize", "pfb_channelize.cu",
+                              [_K3_FIR]),
+    "pfb_channelize/stores_only": ("pfb_channelize", "pfb_channelize.cu",
+                                   [_K3_FFT, _K3_FIR]),
+    "pfb_channelize/skeleton": ("pfb_channelize", "pfb_channelize.cu",
+                                [_K3_STORES, _K3_FFT, _K3_FIR]),
+    "pfb_channelize/tile8": ("pfb_channelize", "pfb_channelize.cu",
+                             [_K3_TILE8]),
+    "pfb_channelize/tile32": ("pfb_channelize", "pfb_channelize.cu", [(
+        "if ((m + 15) / 16 >= 2LL * sms) {\n      return (int)launch64<16>",
+        "if ((m + 31) / 32 >= 2LL * sms) {\n      return (int)launch64<32>")]),
+    "pfb_channelize/run16": ("pfb_channelize", "pfb_channelize.cu", [(
+        "constexpr int kRun = 8; ", "constexpr int kRun = 16; ")]),
+    "pfb_channelize/regs64": ("pfb_channelize", "pfb_channelize.cu", [(
+        "__launch_bounds__(8 * TM)\npfb64", "__launch_bounds__(8 * TM, 8)\npfb64")]),
+    "pfb_channelize/magic_unpack": ("pfb_channelize", "pfb_channelize.cu", [(
+        "  return make_float2(2.0f * (float)(v & 0xFFu) - 255.0f,\n"
+        "                     2.0f * (float)((v >> 8) & 0xFFu) - 255.0f);",
+        "  const float re = __uint_as_float(__byte_perm(v, 0x4B00u, 0x5440u)) - 8388608.0f;\n"
+        "  const float im = __uint_as_float(__byte_perm(v, 0x4B00u, 0x5441u)) - 8388608.0f;\n"
+        "  return make_float2(fmaf(2.0f, re, -255.0f), fmaf(2.0f, im, -255.0f));")]),
+    "pfb_channelize/smem_transpose": ("pfb_channelize", "pfb_channelize.cu", [(
+        "    transpose8(a, j);                                   // lane j: k1 = j\n",
+        "    __syncwarp();\n"
+        "#pragma unroll\n"
+        "    for (int k1 = 0; k1 < 8; ++k1)\n"
+        "      *reinterpret_cast<float2*>(row + 2 * (8 * k1 + ((j + (k1 >> 1)) & 7))) = a[k1];\n"
+        "    __syncwarp();\n"
+        "#pragma unroll\n"
+        "    for (int s = 0; s < 8; ++s)\n"
+        "      a[s] = *reinterpret_cast<const float2*>(row + 2 * (8 * j + ((s + (j >> 1)) & 7)));\n")]),
+    "pfb_channelize/plain_stores": ("pfb_channelize", "pfb_channelize.cu", [(
+        "          __stcs(reinterpret_cast<float4*>(y + (fw + fr) * 2 * Ko) + lane,\n"
+        "                 *reinterpret_cast<const float4*>(wrows + fr * kRowFloats + src));",
+        "          reinterpret_cast<float4*>(y + (fw + fr) * 2 * Ko)[lane] =\n"
+        "              *reinterpret_cast<const float4*>(wrows + fr * kRowFloats + src);")]),
 }
 
 
@@ -108,7 +167,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tpu_sdr_torch import kernels
+    from tpu_sdr_torch.ops import fused_channelizer as FC
     from tpu_sdr_torch.ops import fused_fm as FF
+    from tpu_sdr_torch.utils import design
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -131,6 +192,16 @@ def main() -> int:
     h_out = torch.empty_like(hist)
     n_copy = (zs[0].numel() + a_out.numel()) // 2  # K2's bytes, half each way
     c_dst = torch.empty(n_copy, device=dev)
+    K, R = 64, 9
+    pfb_taps = FC.kernel_taps(design.design_pfb(K, R - 1, cutoff_frac=0.95)
+                              ).to(dev)
+    pfb_tw = FC.twiddles(K).to(dev)
+    pfb_carry = torch.zeros(2 * (R - 1), K, device=dev)
+    pfb_carry_out = torch.empty_like(pfb_carry)
+    pfb_y = torch.empty(BLOCK // K, 2 * K, device=dev)
+    n_copy_k3 = (2 * BLOCK + pfb_y.numel() * 4) // 8  # floats, half each way
+    k3_src = torch.empty(n_copy_k3, device=dev)
+    k3_dst = torch.empty(n_copy_k3, device=dev)
 
     def stream():
         return torch.cuda.current_stream().cuda_stream
@@ -139,7 +210,16 @@ def main() -> int:
         if kernel == "copy":
             c_dst.copy_(zs[i % len(zs)][:n_copy])
             return
-        if kernel == "fm_front":
+        if kernel == "copy_k3":
+            k3_dst.copy_(k3_src)
+            return
+        if kernel == "pfb_channelize":
+            d = copies[i % len(copies)]
+            status = lib.tsdr_pfb_channelize(
+                d.data_ptr(), BLOCK // K, K, R, 0, K, pfb_carry.data_ptr(),
+                pfb_taps.data_ptr(), pfb_tw.data_ptr(), pfb_y.data_ptr(),
+                pfb_carry_out.data_ptr(), stream())
+        elif kernel == "fm_front":
             d = copies[i % len(copies)]
             status = lib.tsdr_fm_front(
                 d.data_ptr(), BLOCK, 1, carry.data_ptr(), taps.data_ptr(),
@@ -157,8 +237,9 @@ def main() -> int:
         lib = kernels.load().cdll
         runs = {"fm_front/as_is": ("fm_front", lib),
                 "fm_resample/as_is": ("fm_resample", lib),
-                "copy": ("copy", None)}
-        with ThreadPoolExecutor(len(VARIANTS)) as pool:
+                "pfb_channelize/as_is": ("pfb_channelize", lib),
+                "copy": ("copy", None), "copy_k3": ("copy_k3", None)}
+        with ThreadPoolExecutor(min(8, len(VARIANTS))) as pool:
             paths = pool.map(lambda n: build_variant(kernels, n, root), VARIANTS)
             for name, path in zip(VARIANTS, paths):
                 runs[name] = (VARIANTS[name][0], kernels.bind(path))
@@ -179,7 +260,9 @@ def main() -> int:
                 end.record()
                 end.synchronize()
                 cold[name].append(start.elapsed_time(end))
-                n = 4 * (len(copies) if kernel == "fm_front" else len(zs))
+                n = 4 * (len(copies) if kernel in ("fm_front",
+                                                   "pfb_channelize")
+                         else len(zs))
                 torch.cuda._sleep(5_000_000)
                 start.record()
                 for i in range(n):
@@ -194,7 +277,8 @@ def main() -> int:
         print(f"{name}: cold {t['cold_ms']:.4f} ms, stream {t['stream_ms']:.4f} "
               f"ms ({card})", flush=True)
     print(json.dumps({"card": card, "block_complex": BLOCK, "reps": REPS,
-                      "copy_bytes": 2 * 4 * n_copy, "variants": result}),
+                      "copy_bytes": 2 * 4 * n_copy,
+                      "copy_k3_bytes": 2 * 4 * n_copy_k3, "variants": result}),
           flush=True)
     return 0
 

@@ -129,10 +129,10 @@ def test_channelize_reference_matches_pallas(setup, channel_slice, local):
         jlo, jspec, interpret=True)
 
     spec = FC.PfbSpec(K, T + 1, C, local)
-    m2 = FC.kernel_matrix(h, channel_slice)
     FC.reset_launch_counts()
-    y_re, y_im, new = FC.channelize(torch.from_numpy(buf),
-                                    torch.from_numpy(carry), m2, spec)
+    y_re, y_im, new = FC.channelize(
+        torch.from_numpy(buf), torch.from_numpy(carry), FC.kernel_taps(h),
+        spec, channel_offset=channel_slice.start if channel_slice else 0)
     assert FC.LAUNCHES["pfb_channelize"] == 0  # CPU: the plain version
     assert y_re.shape == y_im.shape == (3 * C, spec.out_channels)
     snr = _snr_db(np.asarray(jr) + 1j * np.asarray(ji),
@@ -204,9 +204,8 @@ def test_carry_and_pfb_state_convert_by_255(setup):
     pr, pi, _ = TC.pfb_analyze(torch.from_numpy(np.array(re)),
                                torch.from_numpy(np.array(im)),
                                TC.packed_matrix(h, device=CPU), state)
-    m2 = FC.kernel_matrix(h)
     fr, fi, _ = FC.channelize(torch.from_numpy(buf), torch.from_numpy(carry),
-                              m2, FC.default_spec(K, T, C))
+                              FC.kernel_taps(h), FC.default_spec(K, T, C))
     # the two fronts differ only by the split-bf16 weights (~2^-17)
     assert _snr_db(pr + 1j * pi, fr + 1j * fi) >= 90.0
 
@@ -226,10 +225,10 @@ def test_spec_rejects_what_the_jax_spec_rejects():
 @pytest.mark.parametrize("nbytes", [0, 2 * K + 2, 2 * K * 3 - 1])
 def test_channelize_rejects_partial_frames(nbytes):
     spec = FC.default_spec(K, T, C)
-    m2 = torch.zeros((T + 1) * K, 2 * K)
+    taps = torch.zeros(T + 1, K)
     with pytest.raises(ValueError):
         FC.channelize(torch.zeros(nbytes, dtype=torch.uint8),
-                      FC.init_carry(spec, CPU), m2, spec)
+                      FC.init_carry(spec, CPU), taps, spec)
 
 
 def test_channelize_refuses_other_devices():
@@ -237,4 +236,4 @@ def test_channelize_refuses_other_devices():
     with pytest.raises(ValueError):
         FC.channelize(torch.zeros(2 * K * 8, dtype=torch.uint8, device="meta"),
                       torch.zeros(2 * T, K, device="meta"),
-                      torch.zeros((T + 1) * K, 2 * K, device="meta"), spec)
+                      torch.zeros(T + 1, K, device="meta"), spec)

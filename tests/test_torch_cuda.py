@@ -240,8 +240,10 @@ def test_pfb_channelize_kernel_matches_plain(dev, chunks, channel_slice,
                              .astype(np.float32)).to(dev)
     h = design.design_pfb(64, 8, cutoff_frac=0.95)
     m2 = FC.kernel_matrix(h, channel_slice).to(dev)
+    c0 = channel_slice.start if channel_slice else 0
     before = FC.LAUNCHES["pfb_channelize"]
-    y_re, y_im, c = FC.channelize(data, carry, m2, spec)
+    y_re, y_im, c = FC.channelize(data, carry, FC.kernel_taps(h).to(dev),
+                                  spec, channel_offset=c0)
     y, cr = FC.channelize_reference(data, carry, m2, spec)
     assert FC.LAUNCHES["pfb_channelize"] == before + 1
     assert y_re.shape == (chunks * spec.frames_per_chunk, spec.out_channels)
@@ -259,24 +261,73 @@ def test_pfb_channelize_kernel_short_calls(dev, frames):
                                          dtype=np.uint8)).to(dev)
     carry = torch.from_numpy((rng.integers(0, 256, (16, 64)) * 2 - 255)
                              .astype(np.float32)).to(dev)
-    m2 = FC.kernel_matrix(design.design_pfb(64, 8, cutoff_frac=0.95)).to(dev)
-    y_re, y_im, c = FC.channelize(data, carry, m2, WB_SPEC)
+    h = design.design_pfb(64, 8, cutoff_frac=0.95)
+    m2 = FC.kernel_matrix(h).to(dev)
+    y_re, y_im, c = FC.channelize(data, carry, FC.kernel_taps(h).to(dev),
+                                  WB_SPEC)
     y, cr = FC.channelize_reference(data, carry, m2, WB_SPEC)
     assert y_re.shape == (frames, 64)
     assert _snr_db(y.cpu(), torch.cat([y_re, y_im], dim=1).cpu()) >= 100.0
     assert torch.equal(c, cr)
 
 
+@pytest.mark.parametrize("K,local,c0,frames,offset", [
+    (64, 16, 48, 680, 0),       # the last 16-channel window
+    (64, None, 0, 5_440, 0),    # the multi_fm CLI's 696,320-byte read
+    (64, None, 0, 1, 0),        # one frame: the carry shifts by one
+    (64, 16, 16, 8_459, 0),     # no whole number of 16-frame tiles
+    (64, 14, 50, 4_000, 2),     # 2-byte aligned input, an unaligned window
+    (32, None, 0, 1_000, 0),    # the direct-DFT path
+    (32, 8, 8, 3, 0)])
+def test_pfb_channelize_kernel_windows_and_shapes(dev, K, local, c0, frames,
+                                                  offset):
+    """K3 at other column windows, frame counts, alignments and K, against
+    its plain version (>=100 dB, carry equal) and the float64 PFB
+    (>=130 dB)."""
+    rng = np.random.default_rng(frames + K)
+    spec = FC.PfbSpec(K, 9, 680, local)
+    ko = spec.out_channels
+    buf = rng.integers(0, 256, 2 * K * frames, dtype=np.uint8)
+    carry_np = (rng.integers(0, 256, (16, K)) * 2 - 255).astype(np.float32)
+    raw = torch.zeros(offset + buf.size, dtype=torch.uint8, device=dev)
+    data = raw[offset:]
+    data.copy_(torch.from_numpy(buf))
+    carry = torch.from_numpy(carry_np).to(dev)
+    h = design.design_pfb(K, 8, cutoff_frac=0.95)
+    before = FC.LAUNCHES["pfb_channelize"]
+    y_re, y_im, c = FC.channelize(data, carry, FC.kernel_taps(h).to(dev), spec,
+                                  channel_offset=c0)
+    y, cr = FC.channelize_reference(
+        data, carry, FC.kernel_matrix(h, slice(c0, c0 + ko)).to(dev), spec)
+    assert FC.LAUNCHES["pfb_channelize"] == before + 1
+    assert y_re.shape == y_im.shape == (frames, ko)
+    got = torch.cat([y_re, y_im], dim=1).cpu().numpy().astype(np.float64)
+    assert _snr_db(y.cpu(), got) >= 100.0
+    assert torch.equal(c, cr)
+    # the exact PFB: FIR down the frames, DFT across the branches, / 255
+    x = buf.astype(np.float64).reshape(-1, K, 2) * 2 - 255
+    ext = np.concatenate([carry_np[:8] + 1j * carry_np[8:],
+                          x[..., 0] + 1j * x[..., 1]])
+    fir = sum(h[t].astype(np.float64) * ext[8 - t:8 - t + frames]
+              for t in range(9))
+    exact = np.fft.fft(fir, axis=1)[:, c0:c0 + ko] / 255.0
+    assert _snr_db(np.concatenate([exact.real, exact.imag], axis=1),
+                   got) >= 130.0
+
+
 def test_pfb_channelize_rejects_bad_tensors(dev):
-    m2 = torch.zeros(9 * 64, 128, device=dev)
+    taps = torch.zeros(9, 64, device=dev)
     carry = torch.zeros(16, 64, device=dev)
     data = torch.zeros(WB_SPEC.chunk_bytes + 2, dtype=torch.uint8, device=dev)
     with pytest.raises(ValueError):  # carry on the CPU
-        FC.channelize(data[:-2], carry.cpu(), m2, WB_SPEC)
+        FC.channelize(data[:-2], carry.cpu(), taps, WB_SPEC)
     with pytest.raises(ValueError):  # not 2-byte aligned
-        FC.channelize(data[1:-1], carry, m2, WB_SPEC)
-    with pytest.raises(ValueError):  # M2 of the wrong width
-        FC.channelize(data[:-2], carry, m2[:, :64].contiguous(), WB_SPEC)
+        FC.channelize(data[1:-1], carry, taps, WB_SPEC)
+    with pytest.raises(ValueError):  # a tap table of the wrong width
+        FC.channelize(data[:-2], carry, taps[:, :32].contiguous(), WB_SPEC)
+    with pytest.raises(ValueError):  # channels beyond K
+        FC.channelize(data[:-2], carry, taps, WB_SPEC._replace(
+            local_channels=16), channel_offset=56)
 
 
 @pytest.fixture(scope="module")

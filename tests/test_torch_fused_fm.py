@@ -396,7 +396,7 @@ def test_small_calls_match_one_big_call(capture):
 
 @pytest.mark.parametrize("name", sorted(chip_variants.VARIANTS))
 def test_chip_variants_patches_match_the_kernel_sources(name):
-    """chip_variants.py's text patches of K1 and K2 each match the source
+    """chip_variants.py's text patches of K1, K2 and K3 each match the source
     they patch exactly once, so an edit of a kernel shows here, not first
     on the card."""
     _, fname, patches = chip_variants.VARIANTS[name]

@@ -11,8 +11,8 @@ The wideband receiver converts the same way: the XLA front's ``PfbState``
 and the fused front's (2H, K) carry keep their layouts and scales (the
 former normalised, the latter x255; ``fused_channelizer`` converts between
 the two), the stacked discriminator and resampler states keep their
-station axis, and the weights come from the JAX ``WidebandParams`` and the
-Pallas ``(M2_hi, M2_lo)`` pair.
+station axis, and the weights come from the JAX ``WidebandParams`` (K3's
+tap table is its ``h_poly``) and the Pallas ``(M2_hi, M2_lo)`` pair.
 
 The sharded chains' streaming carries keep the JAX shapes: the fused
 chain's ``(kernel_edge (stations, 4, 128), rs_edge (stations, T-1))`` and
@@ -31,6 +31,7 @@ from tpu_sdr_torch.models import wbfm as M
 from tpu_sdr_torch.models import wbfm_wideband as WB
 from tpu_sdr_torch.ops import channelizer as chan
 from tpu_sdr_torch.ops import fm as F
+from tpu_sdr_torch.ops import fused_channelizer as FC
 from tpu_sdr_torch.ops.fused_fm import FusedWbfmSpec, effective_taps
 from tpu_sdr_torch.parallel.mesh import Mesh
 from tpu_sdr_torch.parallel.wbfm_sharded import XlaStreamCarry
@@ -111,9 +112,11 @@ def pfb_matrix_from_conv_weights(W) -> torch.Tensor:
 def wideband_params_from_jax(params, m2_hi, m2_lo, config: WB.WidebandConfig,
                              *, device: str | torch.device) -> WB.WidebandParams:
     """A JAX ``WidebandParams`` and the Pallas front's ``(M2_hi, M2_lo)``
-    -> the port's ``WidebandParams`` for ``config``."""
+    -> the port's ``WidebandParams`` for ``config`` (K3's tap table from
+    the JAX ``h_poly``, its plain version's M2 from the pair)."""
     port = WB.make_params(config, device=device)
     port.h_poly = _tensor(params.h_poly, device)
+    port.kernel_taps = FC.kernel_taps(np.asarray(params.h_poly)).to(device)
     port.pfb_m2 = pfb_matrix_from_conv_weights(params.pfb_W).to(device)
     port.kernel_m2 = split_bf16_sum(m2_hi, m2_lo).to(device)
     port.resamp_V = _tensor(params.resamp_V, device)

@@ -1,9 +1,10 @@
 """Build and bind the port's CUDA kernels (``tpu_sdr_torch/csrc/*.cu``).
 
-At first use ``nvcc`` compiles every source into one shared library with a
-plain C interface, for Hopper only (``sm_90a``), under
-``tpu_sdr_torch/_build/``.  The file name carries a hash of the sources and
-flags, so an edited source builds anew; the build writes a temporary file
+At first use ``nvcc`` compiles every source (one process a source, all
+started together) and links them into one shared library with a plain C
+interface, for Hopper only (``sm_90a``), under ``tpu_sdr_torch/_build/``.
+The file name carries a hash of the sources and flags, so an edited
+source builds anew; the build writes a temporary file
 and renames it into place, so concurrent processes never load half a
 library.  The library is bound with ``ctypes``: pointers and the stream go
 as ``c_void_p``, and every launch returns its CUDA status, which
@@ -84,15 +85,34 @@ def build(src_dir: str = SRC_DIR, build_dir: str = BUILD_DIR
         return path, 0.0, ""
     os.makedirs(build_dir, exist_ok=True)
     tmp = f"{path}.tmp{os.getpid()}"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
+    nvcc = find_nvcc()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in sources]
     t0 = time.monotonic()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # one nvcc a source, all at once, then one link
+    cmds = [[nvcc, *compile_flags, "-c", "-o", o, s]
+            for s, o in zip(sources, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    failed = [(c, p.returncode, o) for c, p, o in zip(cmds, procs, outs)
+              if p.returncode != 0]
+    if not failed:
+        link_cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *objs]
+        link = subprocess.run(link_cmd, capture_output=True, text=True)
+        outs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed = [(link_cmd, link.returncode, outs[-1])]
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
     seconds = time.monotonic() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    if failed:
+        cmd, code, out = failed[0]
+        raise RuntimeError(f"nvcc failed ({code}):\n{' '.join(cmd)}\n{out}")
     os.replace(tmp, path)
-    return path, seconds, proc.stdout + proc.stderr
+    return path, seconds, "".join(outs)
 
 
 def bind(path: str) -> ctypes.CDLL:
@@ -103,7 +123,7 @@ def bind(path: str) -> ctypes.CDLL:
     lib.tsdr_fm_front.restype = i
     lib.tsdr_fm_resample.argtypes = [p, ll, p, p, i, i, i, p, p, p]
     lib.tsdr_fm_resample.restype = i
-    lib.tsdr_pfb_channelize.argtypes = [p, ll, i, i, i, p, p, p, p, p]
+    lib.tsdr_pfb_channelize.argtypes = [p, ll, i, i, i, i, p, p, p, p, p, p]
     lib.tsdr_pfb_channelize.restype = i
     lib.tsdr_halo_pull.argtypes = [i, p, p, ll, p, p, p, i, p]
     lib.tsdr_halo_pull.restype = i

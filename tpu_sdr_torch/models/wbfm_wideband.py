@@ -75,8 +75,9 @@ class WidebandState(NamedTuple):
 
 class WidebandParams(nn.Module):
     """The receiver's weights as buffers: the PFB branch matrix, the plain
-    front's M2 = [M_re | M_im], K3's effective M2 (split-bf16 pair summed,
-    ÷255), the resampler frame matrix, and the selected channels."""
+    front's M2 = [M_re | M_im], K3's tap table, the M2 of K3's plain
+    version (split-bf16 pair summed, ÷255), the resampler frame matrix,
+    and the selected channels."""
 
     def __init__(self, config: WidebandConfig, device: str | torch.device):
         super().__init__()
@@ -87,6 +88,7 @@ class WidebandParams(nn.Module):
                                             config.resample_down)
         self.register_buffer("h_poly", torch.from_numpy(h_poly).to(device))
         self.register_buffer("pfb_m2", chan.packed_matrix(h_poly, device=device))
+        self.register_buffer("kernel_taps", FC.kernel_taps(h_poly).to(device))
         self.register_buffer("kernel_m2", FC.kernel_matrix(h_poly).to(device))
         self.register_buffer("resamp_V", torch.from_numpy(V).to(device))
         self.register_buffer("channels", torch.tensor(
@@ -160,8 +162,8 @@ def demodulate_block_fused(data_u8: torch.Tensor, pfb_carry: torch.Tensor,
     if data_u8.numel() % spec.chunk_bytes:
         raise ValueError(f"block of {data_u8.numel()} bytes is not whole "
                          f"chunks of {spec.chunk_bytes}")
-    y_re, y_im, new_carry = FC.channelize(data_u8, pfb_carry, params.kernel_m2,
-                                          spec)
+    y_re, y_im, new_carry = FC.channelize(data_u8, pfb_carry,
+                                          params.kernel_taps, spec)
     audio, mpx, quad, rs = _tail(y_re, y_im, quad, resamp_hist, params, config)
     out_state = (new_carry, quad, rs.hist)
     if config.emit_mpx:

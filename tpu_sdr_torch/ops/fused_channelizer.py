@@ -4,17 +4,23 @@ counterpart of ``tpu_sdr/ops/pallas_channelizer.py``.
     u8 I/Q bytes --K3 pfb_channelize--> (m, 2*Ko) f32 = [Y_re | Y_im]
 
 K3 (``csrc/pfb_channelize.cu``) unpacks the bytes to the x255 integer
-scale (``2*u8 - 255``), forms the frame windows ``X_win[m, t*K + p] =
-X[m - t, p]`` over R = taps_per_branch + 1 branch rows and multiplies them
-by the packed analysis matrix M2 = [M_re | M_im] / 255.  M2 is the TPU
-kernel's split-bf16 pair ``M2_hi + M2_lo`` summed in float32 once, so one
-f32 FMA per weight reproduces its two bf16 matmuls; the 1/255 divides the
-x255 scale back out, so the output equals ``channelizer.pfb_analyze`` on
-the normalised samples.  ``local_channels`` = Ko < K takes a column block
-of M2 (``make_packed_matrices(channel_slice=...)``), as the sharded path
-will.  The wrapper launches the kernel for a CUDA tensor (or raises), takes
-the plain version for a CPU tensor, and counts launches in
-:data:`LAUNCHES`.
+scale (``2*u8 - 255``), runs the R = taps_per_branch + 1 tap branch filter
+``G = h_poly`` down the frame axis of each of the K branches and a K-point
+DFT across them (a radix-8 x 8 FFT at K = 64, a direct DFT otherwise),
+with the 1/255 that divides the x255 scale back out folded into its
+twiddle table (:func:`twiddles`).  It takes the (R, K) f32 tap table of
+:func:`kernel_taps` and writes the columns ``[channel_offset,
+channel_offset + Ko)``, ``Ko = spec.out_channels`` (< K under
+channel-parallel sharding).
+
+The plain version, :func:`channelize_reference`, is the function the TPU
+kernel computes: the frame windows ``X_win[m, t*K + p] = X[m - t, p]``
+times the packed analysis matrix M2 = [M_re | M_im] / 255, the TPU
+kernel's split-bf16 pair ``M2_hi + M2_lo`` summed in float32
+(:func:`kernel_matrix`).  The two agree to the bf16 rounding of M2 (K3 is
+the closer to the exact PFB).  The wrapper launches the kernel for a CUDA
+tensor (or raises), takes the plain version for a CPU tensor, and counts
+launches in :data:`LAUNCHES`.
 
 The carry keeps the JAX kernel's layout, so it converts 1:1: (2H, K) f32,
 the last H = R - 1 input frames in the x255 scale, re rows then im rows.
@@ -22,6 +28,7 @@ the last H = R - 1 input frames in the x255 scale, re rows then im rows.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -107,9 +114,29 @@ def make_packed_matrices(h_poly: np.ndarray, scale: float = 255.0,
 
 def kernel_matrix(h_poly: np.ndarray, channel_slice: slice | None = None
                   ) -> torch.Tensor:
-    """K3's f32 weights: the packed pair summed, ``M2_hi + M2_lo``."""
+    """The plain version's f32 weights: the packed pair summed,
+    ``M2_hi + M2_lo``."""
     return design.split_bf16_sum(*make_packed_matrices(
         h_poly, channel_slice=channel_slice))
+
+
+def kernel_taps(h_poly: np.ndarray) -> torch.Tensor:
+    """K3's (R, K) f32 tap table: the branch matrix G = ``h_poly`` itself
+    (the 1/255 lives in :func:`twiddles`)."""
+    return torch.from_numpy(np.array(h_poly, dtype=np.float32))
+
+
+def twiddles(num_channels: int) -> torch.Tensor:
+    """K3's (K, 2) f32 table ``exp(-2 pi i n / K) / 255``, n < K, rounded
+    once from float64: the FFT's twiddles (K = 64) or the direct DFT's."""
+    w = np.exp(-2j * np.pi * np.arange(num_channels) / num_channels) / 255.0
+    return torch.from_numpy(np.stack([w.real, w.imag], axis=1)
+                            .astype(np.float32))
+
+
+@functools.lru_cache(maxsize=16)
+def _device_twiddles(num_channels: int, device: torch.device) -> torch.Tensor:
+    return twiddles(num_channels).to(device)
 
 
 def init_carry(spec: PfbSpec, device: str | torch.device) -> torch.Tensor:
@@ -149,53 +176,61 @@ def channelize_reference(data_u8: torch.Tensor, carry: torch.Tensor,
             torch.cat([ext_re[-H:], ext_im[-H:]]))
 
 
-def channelize(data_u8: torch.Tensor, carry: torch.Tensor, m2: torch.Tensor,
-               spec: PfbSpec) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def channelize(data_u8: torch.Tensor, carry: torch.Tensor,
+               taps: torch.Tensor, spec: PfbSpec, *, channel_offset: int = 0
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K3: u8 I/Q of m whole frames (2*m*K bytes) with the (2H, K) carry
-    and f32 M2 (R*K, 2*Ko) -> (Y_re (m, Ko), Y_im (m, Ko), new carry).
-    Y_re and Y_im are column views of one (m, 2*Ko) tensor."""
+    and the (R, K) f32 tap table of :func:`kernel_taps` -> (Y_re (m, Ko),
+    Y_im (m, Ko), new carry) for the channels ``[channel_offset,
+    channel_offset + Ko)``.  Y_re and Y_im are column views of one
+    (m, 2*Ko) tensor.  On the CPU: :func:`channelize_reference` with the
+    M2 built from the same taps."""
     K, R, Ko = spec.num_channels, spec.branch_rows, spec.out_channels
-    H = R - 1
+    H, c0 = R - 1, channel_offset
     frame_bytes = 2 * K
     if data_u8.numel() == 0 or data_u8.numel() % frame_bytes:
         raise ValueError(f"{data_u8.numel()} bytes is not a positive whole "
                          f"number of {K}-channel frames of I/Q pairs")
+    if not 0 <= c0 <= K - Ko:
+        raise ValueError(f"channels [{c0}, {c0 + Ko}) are not within the "
+                         f"{K} channels")
     if not kernels.on_cuda(data_u8):
+        m2 = kernel_matrix(taps.numpy(), slice(c0, c0 + Ko))
         y, new = channelize_reference(data_u8, carry, m2, spec)
         return y[:, :Ko], y[:, Ko:], new
     dev = data_u8.device
     kernels.check_tensor(data_u8, "data", torch.uint8, dev)
     kernels.check_tensor(carry, "carry", torch.float32, dev, (2 * H, K))
-    kernels.check_tensor(m2, "m2", torch.float32, dev, (R * K, 2 * Ko))
-    if Ko % 4 or data_u8.data_ptr() % 2 or m2.data_ptr() % 16:
-        raise ValueError("local_channels must be a multiple of 4, the data "
-                         "2-byte and m2 16-byte aligned")
+    kernels.check_tensor(taps, "taps", torch.float32, dev, (R, K))
+    if data_u8.data_ptr() % 2:
+        raise ValueError("the data must be 2-byte aligned")
     lib = kernels.load().cdll
+    tw = _device_twiddles(K, dev)
     m = data_u8.numel() // frame_bytes
     y = torch.empty(m, 2 * Ko, dtype=torch.float32, device=dev)
     new = torch.empty_like(carry)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = lib.tsdr_pfb_channelize(
-            data_u8.data_ptr(), m, K, R, Ko, carry.data_ptr(), m2.data_ptr(),
-            y.data_ptr(), new.data_ptr(), stream)
+            data_u8.data_ptr(), m, K, R, c0, Ko, carry.data_ptr(),
+            taps.data_ptr(), tw.data_ptr(), y.data_ptr(), new.data_ptr(),
+            stream)
     kernels.check(status, "pfb_channelize")
     LAUNCHES["pfb_channelize"] += 1
     return y[:, :Ko], y[:, Ko:], new
 
 
 class FusedPfb(nn.Module):
-    """K3's effective weights M2 as a buffer; ``forward`` is
-    :func:`channelize`."""
+    """K3's tap table as a buffer; ``forward`` is :func:`channelize`."""
 
     def __init__(self, h_poly: np.ndarray, spec: PfbSpec, *,
                  device: str | torch.device):
         super().__init__()
         self.spec = spec
-        self.register_buffer("m2", kernel_matrix(h_poly).to(device))
+        self.register_buffer("taps", kernel_taps(h_poly).to(device))
 
     def forward(self, data_u8: torch.Tensor, carry: torch.Tensor):
-        return channelize(data_u8, carry, self.m2, self.spec)
+        return channelize(data_u8, carry, self.taps, self.spec)
 
 
 class FusedPfbStreamer:

@@ -2,8 +2,9 @@
 counterpart of ``tpu_sdr/parallel/channelizer_sharded_pallas.py``.
 
 Each shard of the axis frames the whole (replicated) wideband input and
-runs K3 (``fused_channelizer.channelize``) with its own contiguous column
-block of the packed analysis matrix, ``local_channels = K / n`` channels.
+runs K3 (``fused_channelizer.channelize``) with the full tap table on its
+own contiguous block of channels, ``local_channels = K / n`` of them from
+``channel_offset = i * K / n``.
 The input framing is shared, so no collective runs in the steady state:
 the channel blocks concatenate along the channel axis, and every shard
 computes the same new carry (the raw input frames), of which shard 0's is
@@ -24,12 +25,12 @@ from tpu_sdr_torch.utils import design
 
 @dataclass(frozen=True)
 class ShardedFusedPfb:
-    """``devices[i]`` computes channels ``[i*Ko, (i+1)*Ko)`` with
-    ``m2[i]``; ``spec.local_channels`` = Ko."""
+    """``devices[i]`` computes channels ``[i*Ko, (i+1)*Ko)`` with its
+    copy ``taps[i]`` of the tap table; ``spec.local_channels`` = Ko."""
 
     devices: list[torch.device]
     spec: FC.PfbSpec
-    m2: list[torch.Tensor]
+    taps: list[torch.Tensor]
 
     def __call__(self, data_u8, carry: torch.Tensor
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -38,8 +39,10 @@ class ShardedFusedPfb:
         home = self.devices[0]
         datas = replicate(self.devices, data_u8)
         carries = replicate(self.devices, carry)
-        outs = [FC.channelize(d, c, m2, self.spec)
-                for d, c, m2 in zip(datas, carries, self.m2)]
+        ko = self.spec.out_channels
+        outs = [FC.channelize(d, c, taps, self.spec, channel_offset=i * ko)
+                for i, (d, c, taps) in enumerate(zip(datas, carries,
+                                                     self.taps))]
         y_re = torch.cat([o[0].to(home) for o in outs], dim=1)
         y_im = torch.cat([o[1].to(home) for o in outs], dim=1)
         return y_re, y_im, outs[0][2]
@@ -60,9 +63,9 @@ def make_sharded_pfb_fused(mesh: Mesh, num_channels: int = 64,
                       local_channels=k_loc)
     spec.validate()
     h_poly = design.design_pfb(num_channels, taps_per_branch)
-    m2 = [FC.kernel_matrix(h_poly, slice(i * k_loc, (i + 1) * k_loc)).to(d)
-          for i, d in enumerate(devices)]
-    return ShardedFusedPfb(devices=devices, spec=spec, m2=m2)
+    taps = FC.kernel_taps(h_poly)
+    return ShardedFusedPfb(devices=devices, spec=spec,
+                           taps=[taps.to(d) for d in devices])
 
 
 def sharded_pfb_fused_apply(bank: ShardedFusedPfb, buf: np.ndarray,
