@@ -25,14 +25,18 @@ the ported paths through their user entry points:
   and the channel-parallel K3 bank on 4 logical shards of the card;
 * sharded: K4 (``halo_pull``) and K5 (``ring_shift``) against their plain
   versions (bit-equal) on rows of 1 and 4 shards and at the sharded paths'
-  own shapes, then the sharded receiver ``ShardedFusedStreamer`` on a
-  (dp=2, sp=4) mesh of logical shards on ``cuda:0`` (4 stations, two
-  consecutive 25 MB blocks each; K4 ships its carries) against the serial
-  ``FusedWbfmStreamer``, with K1 and K2 held against their plain versions
-  at one of its shards; on a machine with more than one GPU the same path
-  again on a (1, n_gpu) mesh, one shard a card; then the time-sharded
-  channelizer on (1, 4) logical shards (K4 frame halo, an all-to-all of
-  K5 steps) against the unsharded plain one.
+  own shapes; the halo-record helper (``shard_halo``, no TPU kernel: the
+  JAX chain's XLA end-state code) against its plain version and K1's own
+  outputs, and K4 on its records; then the sharded receiver
+  ``ShardedFusedStreamer`` on a (dp=2, sp=4) mesh of logical shards on
+  ``cuda:0`` (4 stations, two consecutive 25 MB blocks each; one record
+  build and one K4 exchange a row; the second block a CUDA graph replay)
+  against the serial ``FusedWbfmStreamer`` and bit-equal to the same
+  chain run eagerly, with K1 and K2 held against their plain versions at
+  one of its shards; on a machine with more than one GPU the same path
+  again (eager) on a (1, n_gpu) mesh, one shard a card; then the
+  time-sharded channelizer on (1, 4) logical shards (K4 frame halo, an
+  all-to-all of K5 steps) against the unsharded plain one.
 
 Each path's launch counts are zeroed just before it runs and read just
 after; the audio is checked (length, tone SNR, agreement with the plain
@@ -40,12 +44,15 @@ PyTorch chain).  The kernels, their plain versions and the one-call
 library yardsticks (K2 and K3 a strided ``conv1d``, K3 also a batched
 ``matmul`` of its unfolded windows, the faster of the two reported; K4 a
 ``cat``, K5 a ``roll``; K1 has none) are timed with CUDA events (K3 also
-at the ``multi_fm`` read of 696,320 bytes), the streamer and the
-CLIs with the host clock; each kernel's roofline bound is computed from
-its shapes and the H100's published peaks.
+at the ``multi_fm`` read of 696,320 bytes; the sp=4 sharded step eager and
+as a graph replay, beside the unsharded chain), the streamer and the
+CLIs with the host clock; the sp=4 step's launches and device operations
+are counted from one ``torch.profiler`` trace of each form; each kernel's
+roofline bound is computed from its shapes and the H100's published peaks.
 
-The last two lines of stdout are a JSON line describing the kernels and
-``{"ok": true, "device": {...}}``; any failure raises (non-zero exit, no
+The last lines of stdout are the helper's JSON line (``{"helper":
+...}``), a JSON line describing the five kernels that replace TPU kernels,
+and ``{"ok": true, "device": {...}}``; any failure raises (non-zero exit, no
 result line).  It exits non-zero without a CUDA device.
 """
 
@@ -87,6 +94,8 @@ SHARD_DP, SHARD_SP = 2, 4
 SHARD_STATIONS = 4
 SHARD_BLOCKS = 2             # consecutive 25 MB blocks per station
 HALO_BIG_FLOATS = 1 << 20    # the multi-MB payload of the K4/K5 checks (4 MB)
+RECORD_CARRY_REL = 1e-6      # the helper's carry against its plain version
+RECORD_TAIL_ABS = 1e-5       # the helper's T-1 outputs against its plain version
 
 
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit):
@@ -498,6 +507,107 @@ def halo_kernels(dev) -> float:
     return err
 
 
+def step_ops(fn) -> dict:
+    """One ``torch.profiler`` trace of ``fn`` (after one untraced call):
+    the device operations it ran by kind, their device µs by name (cut to
+    40 characters), the span from the first one's start to the last one's
+    end, and the host's launch calls by name (kernel, graph, copy and
+    fill launches of the runtime)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device, device_us, host, spans = {}, {}, {}, []
+    for e in prof.events():
+        name = e.name
+        if e.device_type == DeviceType.CUDA:
+            low = name.lower()
+            kind = ("memcpy" if "memcpy" in low else "memset" if "memset" in low
+                    else "kernel")
+            device[kind] = device.get(kind, 0) + 1
+            device_us[name[:40]] = (device_us.get(name[:40], 0.0)
+                                    + e.time_range.elapsed_us())
+            spans.append((e.time_range.start, e.time_range.end))
+        elif "Launch" in name or name.startswith(
+                ("cudaMemcpy", "cudaMemset", "cuMemcpy", "cuMemset")):
+            host[name] = host.get(name, 0) + 1
+    span = (max(s[1] for s in spans) - min(s[0] for s in spans)
+            if spans else None)
+    return {"device_ops": sum(device.values()), "device": device,
+            "device_us": device_us, "device_busy_us": sum(device_us.values()),
+            "device_span_us": span, "host_launch_calls": sum(host.values()),
+            "host": host}
+
+
+def halo_records(dev, block) -> dict:
+    """The halo-record helper (``shard_halo``) against its plain version
+    at the (2, 4) path's shapes (stations 0 and 1 of ``block`` over its 4
+    time shards) and at one station: the carry rows 0/1 bit-equal, rows
+    2/3 within RECORD_CARRY_REL of their scale, the T-1 outputs within
+    RECORD_TAIL_ABS, and those outputs against K1's own last T-1 on the
+    same shard at >= 100 dB; then K4 on the records with an edge record,
+    bit-equal to its plain version.  Returns the errors."""
+    import numpy as np
+    import torch
+
+    from tpu_sdr_torch.ops import fused_fm as FF
+    from tpu_sdr_torch.parallel import cuda_halo as CH
+    from tpu_sdr_torch.parallel import halo as H
+    from tpu_sdr_torch.parallel import shard_halo as SH
+
+    p = SH.make_params(device=dev)
+    T, end = p.T, SH.END
+    taps, _ = FF.make_kernel_params(device=dev)
+    n_bytes = block.shape[1] // SHARD_SP
+    err = rel = 0.0
+    snrs = []
+    for st in (2, 1):
+        row = [torch.from_numpy(np.ascontiguousarray(
+            block[0:st, s * n_bytes:(s + 1) * n_bytes])).to(dev)
+            for s in range(SHARD_SP)]
+        got = SH.shard_halo(row, {dev: p})
+        torch.cuda.synchronize()
+        for x, g in zip(row, got):
+            e = SH.records_reference(x, p)
+            require(torch.equal(g[:, :256], e[:, :256]),
+                    "shard_halo: carry rows 0/1 differ from the plain version")
+            d_end = float((g[:, 256:end] - e[:, 256:end]).abs().max())
+            r = d_end / float(e[:, 256:end].abs().max())
+            d_tail = float((g[:, end:] - e[:, end:]).abs().max())
+            require(r <= RECORD_CARRY_REL, f"shard_halo: carry rows 2/3 off "
+                    f"by {r:.3g} of their scale")
+            require(d_tail <= RECORD_TAIL_ABS,
+                    f"shard_halo: T-1 outputs off by {d_tail:.3g}")
+            err, rel = max(err, d_end, d_tail), max(rel, r)
+            for j in range(st):
+                z, _ = FF.fm_front(x[j], 0, FF.init_carry(dev), taps, p.decim)
+                snrs.append(snr_db(z[-(T - 1):].cpu().numpy(),
+                                   g[j, end:end + T - 1].cpu().numpy()))
+        require(min(snrs) >= SNR_KERNEL_DB, f"shard_halo: T-1 outputs "
+                f"{min(snrs):.1f} dB against K1's own")
+        # K4 on the records; shard 0 gets a mid-stream edge record (the
+        # last shard's own)
+        flats = [g.reshape(-1) for g in got]
+        edge = got[-1].reshape(-1).clone()
+        require(all(torch.equal(a, b) for a, b in zip(
+            CH.pull_left_halo_cuda(flats, flats[0].numel(), edge),
+            H.pull_left_halo(flats, flats[0].numel(), edge))),
+            "halo_pull of the records differs from its plain version")
+        print(f"shard_halo ({st} station(s) x {SHARD_SP} shards of "
+              f"{n_bytes} B): carry rows 0/1 bit-equal, rows 2/3 within "
+              f"{rel:.3g} of their scale, T-1 outputs within {err:.3g} of "
+              f"the plain version and {min(snrs):.1f} dB against K1's own; "
+              f"halo_pull of the records with the edge record bit-equal",
+              flush=True)
+    return {"err": err, "carry_rel": rel, "vs_fm_front_db": min(snrs)}
+
+
 def sharded_path(devices, dp: int, sp: int, blocks, serial):
     """``ShardedFusedStreamer`` on a (dp, sp) mesh of ``devices`` over the
     consecutive ``blocks``, launch counts zeroed before and read after,
@@ -509,20 +619,41 @@ def sharded_path(devices, dp: int, sp: int, blocks, serial):
     from tpu_sdr_torch.ops import fused_fm as FF
     from tpu_sdr_torch.parallel import cuda_halo as CH
     from tpu_sdr_torch.parallel import mesh as PM
+    from tpu_sdr_torch.parallel import shard_halo as SH
     from tpu_sdr_torch.parallel import wbfm_sharded_fused as WSF
     from tpu_sdr_torch.utils import synth
 
     mesh = PM.make_mesh(dp, sp, devices=devices)
-    streamer = WSF.ShardedFusedStreamer(mesh, blocks[0].shape[0])
+    stations = blocks[0].shape[0]
+    streamer = WSF.ShardedFusedStreamer(mesh, stations)
     FF.reset_launch_counts()
     CH.reset_launch_counts()
+    SH.reset_launch_counts()
     t0 = time.monotonic()
     got = np.concatenate([streamer.demodulate(b) for b in blocks], axis=1)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches = {**FF.LAUNCHES, "halo_pull": CH.LAUNCHES["halo_pull"]}
+    launches = {**FF.LAUNCHES, "halo_pull": CH.LAUNCHES["halo_pull"],
+                **SH.LAUNCHES}
     for name, count in launches.items():
         require(count > 0, f"the sharded path never launched {name}")
+    if streamer.graphed:
+        require(streamer.step_graph is not None,
+                "the one-card sharded path captured no CUDA graph")
+        for name in ("halo_pull", "shard_halo"):
+            require(launches[name] == dp * len(blocks),
+                    f"{name}: {launches[name]} launches, one a row a block "
+                    f"is {dp * len(blocks)}")
+    # the same chain run eagerly through chain.fn must give the same bits
+    chain = streamer.chain
+    ke, rs = WSF.initial_carry(stations, device=mesh.home)
+    eager = []
+    for b in blocks:
+        audio, counts, ke, rs = chain.fn(chain.shard(b), ke, rs)
+        eager.append(chain.assemble(audio, counts))
+    require(np.array_equal(got, np.concatenate(eager, axis=1)),
+            "the graph-replayed sharded path differs from the eager chain")
+    del eager
     require(got.shape == serial.shape,
             f"sharded audio {got.shape}, serial {serial.shape}")
     require(np.allclose(got, serial, rtol=1e-4, atol=1e-5),
@@ -533,56 +664,59 @@ def sharded_path(devices, dp: int, sp: int, blocks, serial):
                           skip=1500)
     require(tone >= SNR_TONE_DB, f"sharded station 0 tone {tone:.1f} dB")
     n = sum(b.shape[1] // 2 for b in blocks) * blocks[0].shape[0]
+    form = ("eager first block, CUDA graph replays after" if streamer.graphed
+            else "eager")
     print(f"sharded path ({dp}, {sp}) on {sorted({str(d) for d in devices})}"
-          f": {got.shape[0]} stations x {got.shape[1]} samples, vs serial "
-          f"{s:.1f} dB (max |d| {np.abs(got - serial).max():.3g}), station 0 "
-          f"tone {tone:.1f} dB, launches {launches}, wall {wall:.3f} s = "
-          f"{n / wall / 1e6:.3f} Msps", flush=True)
+          f" ({form}): {got.shape[0]} stations x {got.shape[1]} samples, vs "
+          f"serial {s:.1f} dB (max |d| {np.abs(got - serial).max():.3g}), "
+          f"bit-equal to the eager chain, station 0 tone {tone:.1f} dB, "
+          f"launches {launches}, wall {wall:.3f} s = {n / wall / 1e6:.3f} "
+          f"Msps", flush=True)
     return {"mesh": [dp, sp], "stations": got.shape[0],
             "samples": got.shape[1], "vs_serial_db": s, "tone_db": tone,
+            "graphed": streamer.graphed, "equal_to_eager": True,
             "launches": launches, "wall_s": wall}, got
 
 
 def shard_kernels(dev, block, got, shard: int = 2) -> None:
     """K1 and K2 at one shard of the (dp, sp) path's first block: dp row 0
-    (stations 0 and 1), time shard ``shard``, from the state K4 brings it.
-    Each is held against its plain version on the same bytes and state,
-    and K2's audio against the path's own audio of that shard."""
+    (stations 0 and 1), time shard ``shard``, from the carry and the
+    resampler halo of the record K4 brings it.  Each is held against its
+    plain version on the same bytes and state, and K2's audio against the
+    path's own audio of that shard."""
     import numpy as np
     import torch
 
     from tpu_sdr_torch.ops import fused_fm as FF
     from tpu_sdr_torch.parallel import cuda_halo as CH
     from tpu_sdr_torch.parallel import halo as H
+    from tpu_sdr_torch.parallel import shard_halo as SH
     from tpu_sdr_torch.parallel import wbfm_sharded_fused as WSF
-    from tpu_sdr_torch.utils import design
-    from tpu_sdr_torch.utils.design import WbfmConfig
 
     spec = FF.default_spec()
     T = spec.taps_per_phase
     taps, h_poly = FF.make_kernel_params(device=dev)
-    A, div = (torch.from_numpy(a).to(dev) for a in WSF.end_state_matrix(
-        design.decimator_taps(WbfmConfig()), spec.decim))
+    p = SH.make_params(device=dev)
     n_bytes = block.shape[1] // SHARD_SP
     row = [torch.from_numpy(np.ascontiguousarray(
         block[0:2, s * n_bytes:(s + 1) * n_bytes])).to(dev)
         for s in range(SHARD_SP)]
-    ends = [((b[:, -256:].to(torch.float32) * 2.0 - 255.0) @ A / div
-             ).reshape(-1) for b in row]
-    edge = WSF.initial_carry(2, device=dev)[0].reshape(-1)
-    recv = CH.pull_left_halo_cuda(ends, ends[0].numel(), edge)
-    require(all(torch.equal(r, p) for r, p in zip(
-        recv, H.pull_left_halo(ends, ends[0].numel(), edge))),
-        "halo_pull of the end states differs from its plain version")
+    records = [r.reshape(-1) for r in SH.shard_halo(row, {dev: p})]
+    ke, rs = WSF.initial_carry(2, device=dev)
+    edge = torch.cat([ke.reshape(2, -1), rs, torch.zeros(
+        2, p.record - SH.END - (T - 1), device=dev)], dim=1).reshape(-1)
+    recv = CH.pull_left_halo_cuda(records, records[0].numel(), edge)
+    require(all(torch.equal(r, q) for r, q in zip(
+        recv, H.pull_left_halo(records, records[0].numel(), edge))),
+        "halo_pull of the records differs from its plain version")
     worst = []
     for j in range(2):
-        state = recv[shard].reshape(2, FF.STATE_ROWS, FF.LANES)[j]
-        left = recv[shard - 1].reshape(2, FF.STATE_ROWS, FF.LANES)[j]
+        rec = recv[shard].reshape(2, p.record)[j]
+        state = rec[:SH.END].reshape(FF.STATE_ROWS, FF.LANES)
+        hist = rec[SH.END:SH.END + T - 1]
         z_k, _ = FF.fm_front(row[shard][j], 0, state, taps, spec.decim)
         z_r, _ = FF.fm_front_reference(row[shard][j], 0, state, taps,
                                        spec.decim)
-        z_left, _ = FF.fm_front(row[shard - 1][j], 0, left, taps, spec.decim)
-        hist = z_left[-(T - 1):].contiguous()
         a_k, _ = FF.resample(z_k, hist, h_poly, spec.down)
         a_r, _ = FF.resample_reference(z_k, hist, h_poly, spec.down)
         torch.cuda.synchronize()
@@ -597,7 +731,7 @@ def shard_kernels(dev, block, got, shard: int = 2) -> None:
                 f"station {j} shard {shard}: K2's audio differs from the "
                 f"path's")
         worst.append((s_front, s_rs))
-    print(f"shard {shard} of dp row 0 from its K4-received state: fm_front "
+    print(f"shard {shard} of dp row 0 from its K4-received record: fm_front "
           f"{min(w[0] for w in worst):.1f} dB, fm_resample "
           f"{min(w[1] for w in worst):.1f} dB vs plain, and K2's audio "
           f"matches the path's", flush=True)
@@ -677,6 +811,7 @@ def sharded(dev, flush, u8_two) -> dict:
     from tpu_sdr_torch.parallel import cuda_halo as CH
     from tpu_sdr_torch.parallel import halo as H
     from tpu_sdr_torch.parallel import mesh as PM
+    from tpu_sdr_torch.parallel import shard_halo as SH
     from tpu_sdr_torch.parallel import wbfm_sharded_fused as WSF
 
     # ---- (a) K4/K5 against their plain versions --------------------------
@@ -696,9 +831,16 @@ def sharded(dev, flush, u8_two) -> dict:
         st = FF.FusedWbfmStreamer(device=dev)
         serial.append(np.concatenate([st.demodulate(b[i]) for b in blocks]))
     serial = np.stack(serial)
+    records = halo_records(dev, blocks[0])
     path, got = sharded_path([dev] * (SHARD_DP * SHARD_SP), SHARD_DP,
                              SHARD_SP, blocks, serial)
     shard_kernels(dev, blocks[0], got)
+    # the helper's timing row: dp row 0 of the first block, as the path
+    # gives it (2 stations x 4 shards)
+    n_bytes = blocks[0].shape[1] // SHARD_SP
+    rec_row = [torch.from_numpy(np.ascontiguousarray(
+        blocks[0][0:2, s * n_bytes:(s + 1) * n_bytes])).to(dev)
+        for s in range(SHARD_SP)]
 
     # ---- (c) the peer path: one shard a card ----------------------------
     n_gpu = torch.cuda.device_count()
@@ -715,9 +857,11 @@ def sharded(dev, flush, u8_two) -> dict:
     chan = channelizer_path(dev, flush)
 
     # ---- (e) device timings ----------------------------------------------
-    # K4 at the main path's two exchanges a row (4 shards of (2, 4, 128)
-    # end states with the edge; 4 of (2, 47) resampler tails), K5 at the
-    # channelizer's first all-to-all step, both also at 4 MB a shard
+    # K4 at the exchange of the sp=4 step (4 one-station records and the
+    # edge record) and, for comparison, at the two exchanges of the
+    # previous form of a (2, 4) row (4 shards of (2, 4, 128) end states
+    # with the edge; 4 of (2, 47) resampler tails); K5 at the channelizer's
+    # first all-to-all step; both also at 4 MB a shard
     def row(n_shards, numel):
         return [torch.randn(numel, device=dev) for _ in range(n_shards)]
 
@@ -733,25 +877,53 @@ def sharded(dev, flush, u8_two) -> dict:
     carry, hist = FF.init_carry(dev), torch.zeros(spec.taps_per_phase - 1,
                                                   device=dev)
     ke, rs = WSF.initial_carry(1, device=dev)
-    chain = WSF.make_sharded_wbfm_fused(
-        PM.make_mesh(1, SHARD_SP, devices=[dev] * SHARD_SP), carry_io=True)
+    mesh4 = PM.make_mesh(1, SHARD_SP, devices=[dev] * SHARD_SP)
+    chain = WSF.make_sharded_wbfm_fused(mesh4, carry_io=True)
     shards = chain.shard(data[None])
+    # the same step as a CUDA graph: the streamer's first block runs it
+    # eagerly and captures it, the second replays it
+    graphed = WSF.ShardedFusedStreamer(mesh4, 1)
+    for _ in range(2):
+        graphed.demodulate(u8_two[None, :2 * n])
+    step_graph = graphed.step_graph
+    require(step_graph is not None, "the sp=4 streamer captured no graph")
+    # the step's exchange: the records of its 4 shards and an edge record
+    params = {dev: SH.make_params(device=dev)}
+    step_recs = [r.reshape(-1) for r in SH.shard_halo(shards[0], params)]
+    record = step_recs[0].numel()
+    step_edge = torch.cat([ke.reshape(1, -1), rs, torch.zeros(
+        1, record - SH.END - rs.shape[1], device=dev)], dim=1).reshape(-1)
+    step_stacked = torch.stack(step_recs)
     # the library yardsticks, on the shards stacked on one card: K4's
     # non-circular shift with its edge is one cat of the edge and the
     # left neighbours' tails; K5's circular shift one roll
-    ends_stacked, step_stacked = torch.stack(ends), torch.stack(step)
+    ends_stacked, ring_stacked = torch.stack(ends), torch.stack(step)
 
     def halo_library():
         return torch.cat((edge.view(1, -1), ends_stacked[:-1, -1024:]))
 
     def ring_library():
-        return torch.roll(step_stacked, 1, 0)
+        return torch.roll(ring_stacked, 1, 0)
+
+    def step_library():
+        return torch.cat((step_edge.view(1, -1), step_stacked[:-1]))
 
     require(torch.equal(halo_library(), torch.stack(
         H.pull_left_halo(ends, 1024, edge))), "the K4 yardstick differs")
     require(torch.equal(ring_library(), torch.stack(H.ring_shift(step))),
             "the K5 yardstick differs")
+    require(torch.equal(step_library(), torch.stack(
+        H.pull_left_halo(step_recs, record, step_edge))),
+        "the K4 step yardstick differs")
     ms = device_ms({
+        "shard_halo_plain": lambda: [SH.records_reference(x, params[dev])
+                                     for x in rec_row],
+        "shard_halo": lambda: SH.shard_halo(rec_row, params),
+        "halo_pull_step_library": step_library,
+        "halo_pull_step_plain": lambda: H.pull_left_halo(step_recs, record,
+                                                         step_edge),
+        "halo_pull_step": lambda: CH.pull_left_halo_cuda(step_recs, record,
+                                                         step_edge),
         "halo_pull_library": halo_library,
         "ring_shift_library": ring_library,
         "halo_pull_plain": lambda: H.pull_left_halo(ends, 1024, edge),
@@ -769,17 +941,44 @@ def sharded(dev, flush, u8_two) -> dict:
         "ring_shift_4mb_plain": lambda: H.ring_shift(big),
         "ring_shift_4mb": lambda: CH.ring_shift_cuda(big),
         "sharded_sp4": lambda: chain.fn(shards, ke, rs),
+        "sharded_sp4_graph": step_graph.replay,
         "unsharded": lambda: FF.demodulate_fused(data, 0, carry, hist, taps,
                                                  h_poly, spec),
     }, flush=flush)
     ms.update(chan["ms"])
-    del ends_stacked, step_stacked
-    bounds = {"halo_pull": bound(2 * 4 * SHARD_SP * 1024, 0),
-              "ring_shift": bound(2 * 4 * SHARD_SP * step[0].numel(), 0)}
-    return {"err": err, "path": path, "peer": peer, "chan": chan, "ms": ms,
-            "bounds": bounds,
-            "halo_us": (ms["halo_pull"] + ms["halo_pull_tails"]) * 1e3,
-            "sharded_overhead_ratio": ms["sharded_sp4"] / ms["unsharded"]}
+    # the step on the host clock (enqueue included), and its launches and
+    # device operations from one profiler trace of each form
+    host = {"sharded_sp4": host_ms(lambda: chain.fn(shards, ke, rs)),
+            "sharded_sp4_graph": host_ms(step_graph.replay)}
+    ops = {"sharded_sp4": step_ops(lambda: chain.fn(shards, ke, rs)),
+           "sharded_sp4_graph": step_ops(step_graph.replay)}
+    for name, o in ops.items():
+        print(f"profile {name}: {o['device_ops']} device operations "
+              f"{o['device']}, busy {o['device_busy_us']:.1f} of a "
+              f"{o['device_span_us']} us span, {o['host_launch_calls']} host "
+              f"launch calls {o['host']}; host clock {host[name]:.4f} ms; "
+              f"device us by name {o['device_us']}", flush=True)
+    del ends_stacked, ring_stacked, step_stacked
+    # the bounds: K4 reads each received record (or edge) once and writes
+    # it once; K5 its shards; the helper reads each tail and both tap sets
+    # and writes each record (its operations: 2 T + 2 dots of L taps, 2
+    # FLOP a tap, and ~30 a discriminator output, a record)
+    p = params[dev]
+    L, n_rec = p.taps.numel(), len(rec_row) * rec_row[0].shape[0]
+    bounds = {"halo_pull": bound(2 * 4 * SHARD_SP * record, 0),
+              "ring_shift": bound(2 * 4 * SHARD_SP * step[0].numel(), 0),
+              "shard_halo": bound(n_rec * (2 * p.tail + 4 * p.record)
+                                  + 2 * 4 * L,
+                                  n_rec * ((2 * p.T + 2) * 2 * L
+                                           + 30 * (p.T - 1)))}
+    return {"err": err, "records": records, "path": path, "peer": peer,
+            "chan": chan, "ms": ms, "bounds": bounds, "host_ms": host,
+            "ops": ops, "helper_launches": path["launches"]["shard_halo"],
+            "halo_us": ms["halo_pull_step"] * 1e3,
+            "halo_us_two_exchanges": (ms["halo_pull"]
+                                      + ms["halo_pull_tails"]) * 1e3,
+            "sharded_overhead_ratio": ms["sharded_sp4"] / ms["unsharded"],
+            "sharded_graph_ratio": ms["sharded_sp4_graph"] / ms["unsharded"]}
 
 
 def main(argv=None) -> int:
@@ -1028,22 +1227,28 @@ def main(argv=None) -> int:
     ms.update(sh["ms"])
     bounds.update(sh["bounds"])
     for name, t in ms.items():
-        rate = ("" if name.startswith(("halo_pull", "ring_shift"))
+        rate = ("" if name.startswith(("halo_pull", "ring_shift", "shard_halo"))
                 or name.endswith("_read") else
                 f" = {BLOCK_COMPLEX / t / 1e3:.1f} Msps")
         print(f"time {name}: {t:.4f} ms{rate} ({smi})", flush=True)
-    print(f"halo cost (the sp={SHARD_SP} step's two K4 exchanges): "
-          f"{sh['halo_us']:.2f} us; sharded sp={SHARD_SP} / unsharded step: "
-          f"{sh['sharded_overhead_ratio']:.4f} ({smi})", flush=True)
+    print(f"halo cost (the sp={SHARD_SP} step's one K4 exchange): "
+          f"{sh['halo_us']:.2f} us (the previous form's two exchanges: "
+          f"{sh['halo_us_two_exchanges']:.2f} us); sharded sp={SHARD_SP} / "
+          f"unsharded step: eager {sh['sharded_overhead_ratio']:.4f}, graph "
+          f"replay {sh['sharded_graph_ratio']:.4f} ({smi})", flush=True)
+    # each kernel's row is timed at its main path's shapes: K4 at the
+    # sp=4 step's one exchange of records
+    timed = {name: name for name in bounds} | {"halo_pull": "halo_pull_step"}
     library = {"fm_front": None, "fm_resample": "fm_resample_library",
                "pfb_channelize": "pfb_channelize_library",
-               "halo_pull": "halo_pull_library",
-               "ring_shift": "ring_shift_library"}
+               "halo_pull": "halo_pull_step_library",
+               "ring_shift": "ring_shift_library", "shard_halo": None}
     for name, b in bounds.items():
         lib_ms = ms[library[name]] if library[name] else None
-        print(f"bound {name}: {b['bound_ms']:.4f} ms ({b['bound_by']}, "
-              f"{b['peak']}), kernel {ms[name]:.4f} ms = "
-              f"{100 * b['bound_ms'] / ms[name]:.1f}% of it, library "
+        t = ms[timed[name]]
+        print(f"bound {name}: {b['bound_ms']:.6f} ms ({b['bound_by']}, "
+              f"{b['peak']}), kernel {t:.4f} ms = "
+              f"{100 * b['bound_ms'] / t:.2f}% of it, library "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} ({smi})",
               flush=True)
     print("metrics " + json.dumps({
@@ -1059,10 +1264,27 @@ def main(argv=None) -> int:
         "sharded_path": sh["path"], "peer_path": sh["peer"],
         "channelizer_path": {k: v for k, v in sh["chan"].items()
                              if k != "ms"},
-        "halo_us": sh["halo_us"],
+        "shard_halo": sh["records"], "sharded_step_host_ms": sh["host_ms"],
+        "sharded_step_ops": sh["ops"], "halo_us": sh["halo_us"],
+        "halo_us_two_exchanges": sh["halo_us_two_exchanges"],
         "sharded_overhead_ratio": sh["sharded_overhead_ratio"],
+        "sharded_graph_ratio": sh["sharded_graph_ratio"],
     }), flush=True)
 
+    def line(name, source, replaces, count, err):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": count, "max_abs_err": err,
+                "ms": ms[timed[name]], "plain_ms": ms[f"{timed[name]}_plain"],
+                "bound_ms": bounds[name]["bound_ms"],
+                "bound_by": bounds[name]["bound_by"],
+                "peak": bounds[name]["peak"],
+                "library_ms": ms[library[name]] if library[name] else None}
+
+    # the helper is no TPU kernel: a line of its own
+    print(json.dumps({"helper": line(
+        "shard_halo", "tpu_sdr_torch/csrc/shard_halo.cu",
+        "tpu_sdr/parallel/wbfm_sharded_pallas.py:137 (XLA code, no kernel)",
+        sh["helper_launches"], sh["records"]["err"])}), flush=True)
     rows = [
         ("fm_front", "tpu_sdr_torch/csrc/fm_front.cu",
          "tpu_sdr/ops/pallas_fm.py:177", launches["fm_front"], err_front),
@@ -1078,13 +1300,7 @@ def main(argv=None) -> int:
          "tpu_sdr/parallel/pallas_halo.py:145",
          sh["chan"]["launches"]["ring_shift"], sh["err"]),
     ]
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": count, "max_abs_err": err, "ms": ms[name],
-         "plain_ms": ms[f"{name}_plain"], "bound_ms": bounds[name]["bound_ms"],
-         "bound_by": bounds[name]["bound_by"], "peak": bounds[name]["peak"],
-         "library_ms": ms[library[name]] if library[name] else None}
-        for name, source, replaces, count, err in rows]}), flush=True)
+    print(json.dumps({"kernels": [line(*r) for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -506,3 +506,118 @@ def test_sharded_fused_chain_on_the_card(dev):
     assert outs["cuda"].shape == outs["cpu"].shape
     np.testing.assert_allclose(outs["cuda"], outs["cpu"], rtol=1e-4,
                                atol=1e-5)
+
+
+# ---- the halo record and the graph-replayed sharded step -------------------
+
+def _record_row(dev, shards, stations, seed, n_bytes=4 * 1024):
+    """``shards`` (stations, n_bytes) u8 shards of random bytes on ``dev``,
+    station 0 of shard 0 a synthetic capture."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, 256, (shards, stations, n_bytes), dtype=np.uint8)
+    u8, _ = synth.synth_wbfm_u8(n_bytes // 2, capture_rate=1_020_000,
+                                seed=seed)
+    rows[0, 0] = np.asarray(u8, dtype=np.uint8)
+    return [torch.from_numpy(r).to(dev) for r in rows]
+
+
+@pytest.mark.parametrize("shards,stations", [(4, 1), (4, 2), (4, 4), (32, 1),
+                                             (32, 3)])
+def test_shard_halo_kernel_matches_plain(dev, shards, stations):
+    """The record kernel against its plain version: the carry within 1e-6
+    relative (rows 0/1 bit-equal), the T-1 outputs within 1e-5, the padding
+    zero; one launch for the row, a full 32-shard table included."""
+    from tpu_sdr_torch.parallel import shard_halo as SH
+
+    params = {dev: SH.make_params(device=dev)}
+    row = _record_row(dev, shards, stations, seed=shards + stations)
+    before = SH.LAUNCHES["shard_halo"]
+    got = SH.shard_halo(row, params)
+    assert SH.LAUNCHES["shard_halo"] == before + 1
+    T = SPEC.taps_per_phase
+    for x, g in zip(row, got):
+        exp = SH.records_reference(x, params[dev])
+        assert g.shape == exp.shape == (stations, 560)
+        assert torch.equal(g[:, :256], exp[:, :256])
+        torch.testing.assert_close(g[:, :SH.END], exp[:, :SH.END],
+                                   rtol=1e-6, atol=1e-6)
+        assert float((g[:, SH.END:SH.END + T - 1]
+                      - exp[:, SH.END:SH.END + T - 1]).abs().max()) <= 1e-5
+        assert torch.count_nonzero(g[:, SH.END + T - 1:]) == 0
+
+
+def test_shard_halo_tail_matches_fm_front(dev):
+    """The record's T-1 outputs against K1's own last T-1 on the shard."""
+    from tpu_sdr_torch.parallel import shard_halo as SH
+
+    (x,) = _record_row(dev, 1, 2, seed=3, n_bytes=CHUNK)
+    (rec,) = SH.shard_halo([x], {dev: SH.make_params(device=dev)})
+    taps, _ = FF.make_kernel_params(device=dev)
+    T = SPEC.taps_per_phase
+    for j in range(2):
+        z, _ = FF.fm_front(x[j], 0, FF.init_carry(dev), taps, SPEC.decim)
+        assert _snr_db(z[-(T - 1):].cpu(),
+                       rec[j, SH.END:SH.END + T - 1].cpu()) >= 100.0
+
+
+def test_shard_halo_rejects_33_shards(dev):
+    from tpu_sdr_torch.parallel import shard_halo as SH
+
+    row = _record_row(dev, 33, 1, seed=33, n_bytes=1024)
+    with pytest.raises(ValueError, match="at most 32"):
+        SH.shard_halo(row, {dev: SH.make_params(device=dev)})
+
+
+def _launches():
+    from tpu_sdr_torch.parallel import cuda_halo as CH
+    from tpu_sdr_torch.parallel import shard_halo as SH
+
+    return {**FF.LAUNCHES, **CH.LAUNCHES, **SH.LAUNCHES}
+
+
+def _reset_launches():
+    from tpu_sdr_torch.parallel import cuda_halo as CH
+    from tpu_sdr_torch.parallel import shard_halo as SH
+
+    FF.reset_launch_counts()
+    CH.reset_launch_counts()
+    SH.reset_launch_counts()
+
+
+@pytest.mark.parametrize("dp,sp", [(1, 4), (2, 2)])
+def test_graph_replay_equals_the_eager_chain(dev, dp, sp):
+    """``ShardedFusedStreamer`` on logical shards of one card (a CUDA
+    graph from its second block) over three blocks: bit-equal to the eager
+    ``chain.fn``, with the same launch counts."""
+    from tpu_sdr_torch.parallel import mesh as PM
+    from tpu_sdr_torch.parallel import wbfm_sharded_fused as WSF
+
+    stations = 2 * dp
+    rng = np.random.default_rng(dp * 10 + sp)
+    blocks = [rng.integers(0, 256, (stations, sp * CHUNK), dtype=np.uint8)
+              for _ in range(3)]
+    mesh = PM.make_mesh(dp, sp, devices=[dev] * (dp * sp))
+    _reset_launches()
+    chain = WSF.make_sharded_wbfm_fused(mesh, carry_io=True)
+    ke, rs = WSF.initial_carry(stations, device=dev)
+    eager = []
+    for b in blocks:
+        audio, counts, ke, rs = chain.fn(chain.shard(b), ke, rs)
+        eager.append(chain.assemble(audio, counts))
+    eager_launches = _launches()
+    _reset_launches()
+    streamer = WSF.ShardedFusedStreamer(mesh, stations)
+    assert streamer.graphed
+    graphed = [streamer.demodulate(b) for b in blocks]
+    assert streamer.step_graph is not None
+    assert _launches() == eager_launches
+    assert eager_launches["halo_pull"] == 3 * dp
+    assert eager_launches["shard_halo"] == 3 * dp
+    for e, g in zip(eager, graphed):
+        assert np.array_equal(e, g)
+    assert torch.equal(streamer.states, ke)
+    assert torch.equal(streamer.resamp_hists, rs)
+    # a new carry from outside (reset) reaches the graph's buffers
+    streamer.reset()
+    again = streamer.demodulate(blocks[0])
+    assert np.array_equal(again, eager[0])

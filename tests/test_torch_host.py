@@ -116,6 +116,38 @@ def test_block_feeder_over_a_file_matches_jax(tmp_path):
     assert feeders[0].dropped == feeders[1].dropped == 0
 
 
+class _LiveFileSource(tfeeder.FileSource):
+    """A file read as if it were a live radio: no backpressure."""
+
+    @property
+    def wants_backpressure(self) -> bool:
+        return False
+
+
+@pytest.mark.parametrize("source", [tfeeder.FileSource, _LiveFileSource])
+def test_block_feeder_stalls_replay_and_drops_live(tmp_path, source):
+    """A consumer that sleeps 1.5 s a block, past the reader's 1 s wait,
+    behind a one-block queue: file replay stalls the reader and delivers
+    every byte (the JAX feeder's native path), a live source drops."""
+    rng = np.random.default_rng(8)
+    data = rng.integers(0, 256, 3 * 4096, dtype=np.uint8)
+    path = tmp_path / "cap.u8"
+    data.tofile(path)
+    feeder = tfeeder.BlockFeeder(source(str(path)), block_bytes=4096,
+                                 queue_blocks=1).start()
+    got = []
+    for b in feeder.blocks():
+        got.append(b.copy())
+        time.sleep(1.5)
+    feeder.stop()
+    if source is tfeeder.FileSource:
+        assert feeder.dropped == 0
+        np.testing.assert_array_equal(np.concatenate(got), data)
+    else:
+        assert feeder.dropped >= 1
+        assert len(got) + feeder.dropped == 3
+
+
 @pytest.fixture()
 def jax_rtl_tcp_server():
     jfake.clear_fake_devices()

@@ -48,6 +48,15 @@ def test_cli_file_mode_recovers_tone(capture_file, capsysbinary, mode):
     assert snr >= 40.0, f"--mode {mode}: tone SNR {snr:.1f} dB"
 
 
+def test_cli_pallas_mode_is_fused(capture_file, capsysbinary):
+    """``--mode pallas``, the JAX CLI's spelling, writes the fused bytes."""
+    args = ["--file", capture_file, "--torch-device", "cpu", "--mode"]
+    pallas = _run(args + ["pallas"], capsysbinary)
+    fused = _run(args + ["fused"], capsysbinary)
+    assert len(fused) > 0
+    assert pallas.tobytes() == fused.tobytes()
+
+
 def test_cli_fused_agrees_with_fir(capture_file, capsysbinary):
     args = ["--file", capture_file, "--torch-device", "cpu", "--mode"]
     fused = _run(args + ["fused"], capsysbinary).astype(np.float64)

@@ -214,6 +214,19 @@ def test_cli_writes_station_files(capture_file, port_audio, tmp_path, front):
                               skip=400) >= 25.0
 
 
+def test_cli_pallas_flag_is_fused(capture_file, tmp_path):
+    """``--pallas``, the JAX CLI's spelling, writes the ``--fused`` files."""
+    argv = ["--file", capture_file, "--channels", "3,60", "--torch-device",
+            "cpu"]
+    for flag in ("--pallas", "--fused"):
+        assert multi_fm.main(argv + [flag, "--out-dir",
+                                     str(tmp_path / flag[2:])]) == 0
+    for ch in CHANNELS:
+        pallas = (tmp_path / "pallas" / f"station_{ch}.raw").read_bytes()
+        assert len(pallas) > 0
+        assert pallas == (tmp_path / "fused" / f"station_{ch}.raw").read_bytes()
+
+
 def test_cli_single_channel_streams_to_stdout(capture_file, capsysbinary):
     assert multi_fm.main(["--file", capture_file, "--channels", "60",
                           "--fused", "--torch-device", "cpu"]) == 0

@@ -6,7 +6,8 @@ by the polyphase channelizer, and every selected channel's WBFM tail runs
 as one batch on the device (``models.wbfm_wideband``).  Fronts:
 
   plain    the channelizer in plain PyTorch (default, as in the JAX CLI)
-  --fused  the hand-written CUDA kernel pfb_channelize (K3)
+  --fused  the hand-written CUDA kernel pfb_channelize (K3); ``--pallas``,
+           the JAX CLI's name for its kernel front, is the same flag
 
 Each station's 32 kHz s16 audio is written to ``<out-dir>/station_<ch>.raw``;
 with a single channel and no ``--out-dir`` the audio streams to stdout.
@@ -38,8 +39,9 @@ def main(argv=None) -> int:
     p.add_argument("--out-dir", default=None,
                    help="write station_<ch>.raw files here (default: stdout "
                         "when one channel, ./ otherwise)")
-    p.add_argument("--fused", action="store_true",
-                   help="channelize with the fused CUDA kernel (K3)")
+    p.add_argument("--fused", "--pallas", dest="fused", action="store_true",
+                   help="channelize with the fused CUDA kernel (K3); "
+                        "--pallas is the JAX CLI's name for it")
     p.add_argument("--torch-device", default="cuda",
                    help="where to demodulate: cuda (default; raises without "
                         "a GPU), cuda:N, or cpu for the plain PyTorch versions")

@@ -7,7 +7,9 @@ file loop and demod loop below, ``stream.feeder``, the device control
 plane ``api``), and demodulates on a CUDA device:
 
   fir    the float32 chain in plain PyTorch (default, as in the JAX CLI)
-  fused  the two hand-written CUDA kernels (fm_front -> fm_resample)
+  fused  the two hand-written CUDA kernels (fm_front -> fm_resample);
+         ``--mode pallas``, the JAX CLI's name for its kernel chain, is
+         the same mode
 
 The GPU is required: without one the CLI raises, unless ``--torch-device
 cpu`` asks for the plain PyTorch versions on the CPU.
@@ -32,6 +34,7 @@ FREQUENCY = 94_900_000  # Hz (ref simple_fm.rs:25)
 SAMPLE_RATE = 170_000  # demod rate (ref simple_fm.rs:26)
 
 PORTED_MODES = ("fir", "fused")
+MODE_ALIASES = {"pallas": "fused"}  # the JAX CLI's spellings
 UNPORTED_MODES = ("exact", "boxcar", "stereo")
 
 
@@ -111,8 +114,11 @@ def main(argv=None) -> int:
                    help="stream from a remote rtl_tcp server instead of a "
                         "local device (tunes it to --freq)")
     p.add_argument("--device", type=int, default=0, help="dongle index")
-    p.add_argument("--mode", choices=PORTED_MODES + UNPORTED_MODES,
-                   default="fir")
+    p.add_argument("--mode", choices=(*PORTED_MODES, *MODE_ALIASES,
+                                      *UNPORTED_MODES),
+                   default="fir",
+                   help="fir (plain PyTorch) or fused (the CUDA kernels); "
+                        "pallas is the JAX CLI's name for fused")
     p.add_argument("--torch-device", default="cuda",
                    help="where to demodulate: cuda (default; raises without "
                         "a GPU), cuda:N, or cpu for the plain PyTorch versions")
@@ -123,6 +129,7 @@ def main(argv=None) -> int:
                    help="stop after N blocks (device/tcp modes; 0 = run "
                         "until interrupted)")
     args = p.parse_args(argv)
+    args.mode = MODE_ALIASES.get(args.mode, args.mode)
     if args.mode in UNPORTED_MODES:
         p.error(f"--mode {args.mode} is not ported yet (ported: "
                 f"{', '.join(PORTED_MODES)}); use python -m "

@@ -129,6 +129,8 @@ def bind(path: str) -> ctypes.CDLL:
     lib.tsdr_halo_pull.restype = i
     lib.tsdr_ring_shift.argtypes = [i, p, ll, p, p, i, p]
     lib.tsdr_ring_shift.restype = i
+    lib.tsdr_shard_halo.argtypes = [i, p, i, ll, i, p, p, i, i, i, i, p, p]
+    lib.tsdr_shard_halo.restype = i
     lib.tsdr_enable_peer.argtypes = [i, i]
     lib.tsdr_enable_peer.restype = i
     lib.tsdr_error_string.argtypes = [i]

@@ -93,23 +93,29 @@ def _to(x, device: torch.device) -> torch.Tensor:
     return x.to(device).contiguous()
 
 
-def shard_time(mesh: Mesh, blocks) -> list[list[torch.Tensor | None]]:
+def shard_time(mesh: Mesh, blocks, out=None
+               ) -> list[list[torch.Tensor | None]]:
     """Cut ``(stations, n)`` blocks (numpy or torch) into ``dp x sp``
     contiguous shards, stations over ``dp`` and the last axis over ``sp``,
     each on its place: ``shards[d][s]``.  Rows this process does not own
-    are ``None``."""
+    are ``None``.  ``out``: the shards of an earlier call of the same
+    shape, written in place and returned."""
     dp, sp = mesh.devices.shape
     stations, n = blocks.shape
     if stations % dp or n % sp:
         raise ValueError(f"blocks of shape {tuple(blocks.shape)} do not "
                          f"split over a {dp}x{sp} mesh")
     st, n_loc = stations // dp, n // sp
-    shards: list[list[torch.Tensor | None]] = [[None] * sp for _ in range(dp)]
+    shards = out or [[None] * sp for _ in range(dp)]
     for d in mesh.local_rows():
         for s in range(sp):
-            shards[d][s] = _to(blocks[d * st:(d + 1) * st,
-                                      s * n_loc:(s + 1) * n_loc],
-                               mesh.devices[d, s])
+            part = blocks[d * st:(d + 1) * st, s * n_loc:(s + 1) * n_loc]
+            if out is None:
+                shards[d][s] = _to(part, mesh.devices[d, s])
+            else:
+                if isinstance(part, np.ndarray):
+                    part = torch.from_numpy(np.ascontiguousarray(part))
+                shards[d][s].copy_(part)
     return shards
 
 

@@ -167,9 +167,9 @@ def resample_shard(demod: torch.Tensor, halo: torch.Tensor, shard: int,
             return audio, count
         audio = torch.empty(st, count, dtype=torch.float32,
                             device=demod.device)
-        halo = halo.contiguous()
         for j in range(st):
-            FF.resample(demod[j], halo[j], h_poly, down, out=audio[j])
+            FF.resample(demod[j], halo[j].contiguous(), h_poly, down,
+                        out=audio[j])
         return audio, count
 
     start = shard * n_out  # global index of the shard's first sample

@@ -3,22 +3,25 @@ counterpart of ``tpu_sdr/parallel/wbfm_sharded_pallas.py``.
 
 The same (dp, sp) layout as ``wbfm_sharded``, but each shard's front end
 (u8 unpack -> fs/4 rotate -> 72-tap FIR ÷6 -> discriminator) is K1
-(``fused_fm.fm_front``) and its resampler K2.  The halos become K1's
-initial carry:
+(``fused_fm.fm_front``) and its resampler K2.  A row of shards runs:
 
-Each shard decodes and rotates only its own last 128 samples and builds
-from them the (4, 128) carry it would hand a next chunk — FIR history in
-rows 0/1, its own last decimated sample (one 72-tap dot on the tail) in
-rows 2/3 lane 127.  That end-of-shard carry is exactly what the RIGHT
-neighbour must start from, so the whole (stations, 4, 128) block ships
-right in ONE halo exchange and lands as the neighbour's initial state.
-Shard 0 starts from the global streaming carry (zeros and a previous
-sample of 1 + 0j for a fresh stream).
+1. the halo records (``shard_halo``, one launch a device): from its last
+   360 raw samples, each shard builds the (4, 128) carry it would hand a
+   next chunk and its last T-1 discriminator outputs;
+2. ONE halo exchange (K4) ships every record to the right neighbour;
+   shard 0 gets the edge record ``[kernel_edge | rs_edge | 0]``, the
+   global streaming carry (zeros and a previous sample of 1 + 0j for a
+   fresh stream);
+3. K1 over each whole shard from the received carry, phase 0;
+4. K2 over its output with the received T-1 outputs as its halo.
 
-On a CUDA mesh the exchanges are K4 (``cuda_halo.pull_left_halo_cuda``);
-on a CPU mesh they are the plain copy (``halo.pull_left_halo``), as JAX
-runs the Pallas kernel on TPU meshes and ``ppermute`` elsewhere.  The
+On a CUDA mesh the exchange is K4 (``cuda_halo.pull_left_halo_cuda``) and
+the records the kernel; on a CPU mesh both are their plain versions, as
+JAX runs the Pallas kernel on TPU meshes and ``ppermute`` elsewhere.  The
 mesh's own devices decide.
+
+:class:`ShardedFusedStreamer` replays the whole step as one CUDA graph when
+every place of its mesh is the same CUDA device.
 
 Constraints: ``filter_mode='fir'``; each shard's complex count is a whole
 number of kernel chunks (65,280 by default).  Input is the u8 I/Q bytes,
@@ -28,51 +31,22 @@ which K1 takes as they are; the rotation runs in K1 (the JAX chain's
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
 from tpu_sdr_torch.ops import fused_fm as FF
 from tpu_sdr_torch.parallel import cuda_halo as CH
+from tpu_sdr_torch.parallel import mesh as mesh_mod
+from tpu_sdr_torch.parallel import shard_halo as SH
 from tpu_sdr_torch.parallel.mesh import Mesh
 from tpu_sdr_torch.parallel.wbfm_sharded import (
     ShardedWbfm, check_not_boxcar, resample_shard, run_rows)
-from tpu_sdr_torch.utils import design
 from tpu_sdr_torch.utils.design import WbfmConfig
 
-_TAIL = 128  # decoded tail samples per shard (>= L-1 + decim + 1)
-
-# fs/4 rotation of sample k, j**(k % 4) * (i + jq): the (re, im) outputs'
-# coefficients of (i, q)
-_ROT = (((1, 0), (0, 1)), ((0, -1), (1, 0)), ((-1, 0), (0, -1)),
-        ((0, 1), (-1, 0)))
-
-
-def end_state_matrix(taps: np.ndarray, decim: int
-                     ) -> tuple[np.ndarray, np.ndarray]:
-    """``(A (2*_TAIL, 4*128), div (4*128,))``: a shard's end-of-shard
-    carry, flattened, is ``(x @ A) / div`` for ``x`` its last _TAIL samples
-    as interleaved I/Q in the x255 scale (2u - 255).  The tail starts at a
-    local index 0 mod 4, so sample k rotates by k % 4.  Rows 0/1 take the
-    rotated last L-1 samples (one +-1 entry a column: exact); rows 2/3
-    lane 127 are the dot of the rotated last FIR window with the reversed
-    f32 design ``taps``, then / 255 — the JAX chain's formula, not K1's
-    split-bf16 taps."""
-    L = len(taps)
-    taps_rev = np.asarray(taps, dtype=np.float32)[::-1]
-    w0 = _TAIL - decim - (L - 1)  # the tail's last FIR window
-    lanes = FF.LANES
-    A = np.zeros((2 * _TAIL, FF.STATE_ROWS * lanes), dtype=np.float32)
-    for k in range(_TAIL):
-        for row, coef in enumerate(_ROT[k % 4]):  # row 0: re, row 1: im
-            for c, w in enumerate(coef):  # c 0: i, c 1: q
-                if k >= _TAIL - (L - 1):
-                    A[2 * k + c, row * lanes + k - (_TAIL - (L - 1))] = w
-                if w0 <= k < w0 + L:
-                    A[2 * k + c, (2 + row) * lanes + lanes - 1] = (
-                        w * taps_rev[k - w0])
-    div = np.ones(FF.STATE_ROWS * lanes, dtype=np.float32)
-    div[[2 * lanes + lanes - 1, 3 * lanes + lanes - 1]] = 255.0
-    return A, div
+# the launch counters of the kernels a sharded step runs
+_COUNTERS = (FF.LAUNCHES, CH.LAUNCHES, SH.LAUNCHES)
 
 
 def initial_carry(stations: int, config: WbfmConfig | None = None, *,
@@ -96,26 +70,27 @@ def make_sharded_wbfm_fused(mesh: Mesh, config: WbfmConfig | None = None,
     ``kernel_edge`` (stations, 4, 128) seeds shard 0's kernel state,
     ``rs_edge`` (stations, T-1) its resampler halo, and the ``*_end``
     outputs (on ``mesh.home``) are the LAST time shard's end-of-block
-    values — feed them back as the next block's edges and the chain is
-    sample-exact with one serial stream.  Start from :func:`initial_carry`.
+    values (its record's carry, and K1's own last T-1 outputs) — feed them
+    back as the next block's edges and the chain is sample-exact with one
+    serial stream.  Start from :func:`initial_carry`.
     """
     config = config or WbfmConfig()
     check_not_boxcar(config)
     spec = FF.default_spec(config)
     T = spec.taps_per_phase
-    A, div = end_state_matrix(design.decimator_taps(config), spec.decim)
-    banks = {}
-    for dev in set(mesh.devices.flat):
-        taps, h_poly = FF.make_kernel_params(config, device=dev)
-        banks[dev] = (taps, h_poly, torch.from_numpy(A).to(dev),
-                      torch.from_numpy(div).to(dev))
+    places = set(mesh.devices.flat)
+    banks = {dev: FF.make_kernel_params(config, device=dev) for dev in places}
+    halo_params = {dev: SH.make_params(config, device=dev) for dev in places}
+    record = halo_params[mesh.home].record
+    pads: dict = {}  # the edge record's zero tail, per (place, stations)
 
-    def end_state(block: torch.Tensor) -> torch.Tensor:
-        """The (stations, 4, 128) carry at the end of this shard."""
-        st, nbytes = block.shape
-        _, _, A_dev, div_dev = banks[block.device]
-        x = block[:, nbytes - 2 * _TAIL:].to(torch.float32) * 2.0 - 255.0
-        return (x @ A_dev / div_dev).reshape(st, FF.STATE_ROWS, FF.LANES)
+    def edge_record(kernel_edge, rs_edge):
+        st, dev = rs_edge.shape[0], rs_edge.device
+        if (dev, st) not in pads:
+            pads[dev, st] = torch.zeros(st, record - SH.END - (T - 1),
+                                        dtype=torch.float32, device=dev)
+        return torch.cat([kernel_edge.reshape(st, SH.END), rs_edge,
+                          pads[dev, st]], dim=1)
 
     def row_fn(blocks, carry):
         st = blocks[0].shape[0]
@@ -129,40 +104,36 @@ def make_sharded_wbfm_fused(mesh: Mesh, config: WbfmConfig | None = None,
                                                  device=blocks[0].device)
         else:
             kernel_edge, rs_edge = carry
-        ends = [end_state(b) for b in blocks]
+        records = SH.shard_halo(blocks, halo_params)
 
-        # one exchange ships every shard's end state to its right neighbour
-        flats = [e.reshape(-1) for e in ends]
-        recv = CH.pull_left_halo_cuda(flats, flats[0].numel(),
-                                      kernel_edge.reshape(-1))
+        # one exchange ships every record to its right neighbour
+        recv = CH.pull_left_halo_cuda(
+            [r.reshape(-1) for r in records], st * record,
+            edge_record(kernel_edge, rs_edge).reshape(-1))
 
-        # K1 over each whole shard from the received state, phase 0
-        demods = []
-        for b, r in zip(blocks, recv):
-            taps = banks[b.device][0]
-            states = r.reshape(st, FF.STATE_ROWS, FF.LANES)
+        # K1 over each whole shard from the received carry, phase 0, then
+        # K2 with the received outputs as its halo
+        audio, counts, demods = [], [], []
+        for s, (b, r) in enumerate(zip(blocks, recv)):
+            taps, h_poly = banks[b.device]
+            r = r.reshape(st, record)
             demod = torch.empty(st, b.shape[1] // 2 // spec.decim,
                                 dtype=torch.float32, device=b.device)
             for j in range(st):
-                FF.fm_front(b[j], 0, states[j], taps, spec.decim,
-                            out=demod[j])
-            demods.append(demod)
-
-        # the resampler's T-1 halo: a second exchange, of each shard's
-        # demodulated tail (JAX sends this one with lax.ppermute)
-        tails = [d[:, -(T - 1):].reshape(-1) for d in demods]
-        rs_halo = CH.pull_left_halo_cuda(tails, tails[0].numel(),
-                                         rs_edge.reshape(-1))
-        audio, counts = [], []
-        for s, (demod, h) in enumerate(zip(demods, rs_halo)):
-            a, c = resample_shard(demod, h.reshape(st, T - 1), s, config,
-                                  banks[demod.device][1], kernel=True)
+                FF.fm_front(b[j], 0, r[j, :SH.END].reshape(
+                    FF.STATE_ROWS, FF.LANES), taps, spec.decim, out=demod[j])
+            a, c = resample_shard(demod, r[:, SH.END:SH.END + T - 1], s,
+                                  config, h_poly, kernel=True)
             audio.append(a)
             counts.append(c)
+            demods.append(demod)
         if carry is None:
             return audio, counts, None
-        # the end-of-block carries: the LAST shard's end state and tail
-        return audio, counts, (ends[-1], tails[-1].reshape(st, T - 1))
+        # the end-of-block carries: the LAST shard's record carry and K1's
+        # own last T-1 outputs there
+        return audio, counts, (
+            records[-1][:, :SH.END].reshape(st, FF.STATE_ROWS, FF.LANES),
+            demods[-1][:, -(T - 1):])
 
     def fn(shards, kernel_edge=None, rs_edge=None):
         if carry_io != (kernel_edge is not None and rs_edge is not None):
@@ -174,6 +145,20 @@ def make_sharded_wbfm_fused(mesh: Mesh, config: WbfmConfig | None = None,
     return ShardedWbfm(mesh=mesh, config=config, fn=fn)
 
 
+@dataclass
+class _StepGraph:
+    """A captured step and the static tensors it reads and writes."""
+
+    shape: tuple
+    graph: torch.cuda.CUDAGraph
+    shards: list        # the block's static shard buffers
+    states: torch.Tensor
+    hists: torch.Tensor
+    audio: list         # the step's audio, rewritten by every replay
+    counts: list
+    launches: list      # per counter dict, the launches of one step
+
+
 class ShardedFusedStreamer:
     """Streaming host wrapper around the ``carry_io`` fused sharded chain:
     a multi-shard receiver with the ``(carry, block)`` discipline of the
@@ -183,7 +168,15 @@ class ShardedFusedStreamer:
     is a whole number of kernel chunks, returns the assembled audio as
     numpy, and carries the stream across calls (sample-exact with one
     serial stream).  The carries keep the JAX attribute names
-    ``states``/``resamp_hists`` and shapes, on ``mesh.home``."""
+    ``states``/``resamp_hists`` and shapes, on ``mesh.home``.
+
+    When every place of the mesh is one CUDA device (``graphed``), the
+    first block of a shape runs the step eagerly (which also builds the
+    kernels), then one step is captured as a CUDA graph over static shard
+    and carry buffers; each later block of that shape is copied into the
+    shard buffers and the graph replays.  The launch counters then add the
+    captured step's launches at each replay.  A mesh over several cards,
+    or on the CPU, runs every step eagerly."""
 
     def __init__(self, mesh: Mesh, stations: int,
                  config: WbfmConfig | None = None):
@@ -191,15 +184,66 @@ class ShardedFusedStreamer:
         self.chain = make_sharded_wbfm_fused(mesh, self.config, carry_io=True)
         self.states, self.resamp_hists = initial_carry(
             stations, self.config, device=mesh.home)
+        self.graphed = mesh.is_cuda and len(set(mesh.devices.flat)) == 1
+        self._graph: _StepGraph | None = None
+
+    @property
+    def step_graph(self) -> torch.cuda.CUDAGraph | None:
+        """The captured step (``None`` before the first block, or eager)."""
+        return None if self._graph is None else self._graph.graph
 
     def demodulate(self, blocks) -> np.ndarray:
         if isinstance(blocks, np.ndarray):
             blocks = np.ascontiguousarray(blocks, dtype=np.uint8)
-        audio, counts, self.states, self.resamp_hists = self.chain.fn(
-            self.chain.shard(blocks), self.states, self.resamp_hists)
-        return self.chain.assemble(audio, counts)
+        if not self.graphed:
+            audio, counts, self.states, self.resamp_hists = self.chain.fn(
+                self.chain.shard(blocks), self.states, self.resamp_hists)
+            return self.chain.assemble(audio, counts)
+        g = self._graph
+        if g is None or g.shape != tuple(blocks.shape):
+            return self._step_and_capture(blocks)
+        mesh_mod.shard_time(self.chain.mesh, blocks, out=g.shards)
+        # a carry assigned from outside (reset, a hand-over) goes into the
+        # static buffers the graph reads
+        if self.states is not g.states:
+            g.states.copy_(self.states)
+            self.states = g.states
+        if self.resamp_hists is not g.hists:
+            g.hists.copy_(self.resamp_hists)
+            self.resamp_hists = g.hists
+        g.graph.replay()
+        for counter, step in zip(_COUNTERS, g.launches):
+            for name, n in step.items():
+                counter[name] += n
+        return self.chain.assemble(g.audio, g.counts)
+
+    def _step_and_capture(self, blocks) -> np.ndarray:
+        """The eager step on ``blocks``, then the capture of the next step
+        over the same buffers."""
+        # the graph's own shard buffers: a shard cut from a CUDA block may
+        # be a view of the caller's tensor, which later blocks would overwrite
+        shards = [[x if x is None else x.clone() for x in row]
+                  for row in self.chain.shard(blocks)]
+        audio, counts, states, hists = self.chain.fn(
+            shards, self.states, self.resamp_hists)
+        out = self.chain.assemble(audio, counts)
+        graph = torch.cuda.CUDAGraph()
+        before = [dict(c) for c in _COUNTERS]
+        with torch.cuda.device(self.chain.mesh.home), torch.cuda.graph(graph):
+            g_audio, g_counts, kernel_end, rs_end = self.chain.fn(
+                shards, states, hists)
+            states.copy_(kernel_end)
+            hists.copy_(rs_end)
+        # capture launches nothing: take its ticks back, keep them per step
+        launches = []
+        for counter, b in zip(_COUNTERS, before):
+            launches.append({k: counter[k] - b[k] for k in counter})
+            counter.update(b)
+        self._graph = _StepGraph(tuple(blocks.shape), graph, shards, states,
+                                 hists, g_audio, g_counts, launches)
+        self.states, self.resamp_hists = states, hists
+        return out
 
     def reset(self) -> None:
         self.states, self.resamp_hists = initial_carry(
             self.states.shape[0], self.config, device=self.states.device)
-

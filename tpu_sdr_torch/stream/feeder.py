@@ -3,10 +3,10 @@ data plane — the port's copy of ``tpu_sdr/stream/feeder.py``.
 
 The reference's ingest is a blocking two-thread pipeline (simple_fm.rs:55-63,
 rtl_tcp.rs:378-400): a reader thread fills a bounded queue that the demod
-loop drains.  This copy keeps the JAX feeder's Python path (the one it
-takes when its native runtime is absent), with the same backpressure and
-drop semantics; the C++ ring and pump and the ``jax.device_put`` double
-buffer are left out.
+loop drains.  This copy keeps the JAX feeder's Python reader thread with
+the backpressure and drop semantics of its native path (a replayable
+source stalls, a live one drops); the C++ ring and pump and the
+``jax.device_put`` double buffer are left out.
 
 Sources:
 
@@ -148,8 +148,10 @@ class BlockFeeder:
     """Reader thread + bounded queue + numpy hand-off.
 
     The bounded queue reproduces the reference's backpressure semantics
-    (rtl_tcp.rs:24,365): the reader waits up to a second for room, then
-    drops the block and counts it.  ``blocks()`` yields numpy u8 arrays.
+    (rtl_tcp.rs:24,365): for a live source the reader waits up to a second
+    for room, then drops the block and counts it; a source that
+    ``wants_backpressure`` (file replay) stalls instead and never drops.
+    ``blocks()`` yields numpy u8 arrays.
     """
 
     def __init__(self, source: BlockSource, block_bytes: int = DEFAULT_BUF_LENGTH,
@@ -180,24 +182,33 @@ class BlockFeeder:
             self._thread.join(timeout=2.0)
         self.source.close()
 
+    def _put_until_stopped(self, item) -> None:
+        """Wait for room for ``item`` until it lands or a stop is requested."""
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.2)
+                return
+            except queue.Full:
+                continue
+
     def _reader(self) -> None:
+        # A replayable source stalls on a full queue and never drops (the
+        # JAX feeder's _reader_native); a live one drops after a second.
+        backpressure = self.source.wants_backpressure
         while not self._stop.is_set():
             data = self.source.read_block(self.block_bytes)
             if data is None:
                 break
+            if backpressure:
+                self._put_until_stopped(data)
+                continue
             try:
                 self._q.put(data, timeout=1.0)
             except queue.Full:
                 self._dropped += 1
         # The end-of-stream sentinel must not be lost to a momentarily-full
-        # queue (the consumer would block forever); keep trying until it
-        # lands or a stop is requested (stop() enqueues its own sentinel).
-        while not self._stop.is_set():
-            try:
-                self._q.put(None, timeout=0.2)
-                return
-            except queue.Full:
-                continue
+        # queue (the consumer would block forever); stop() enqueues its own.
+        self._put_until_stopped(None)
 
     def blocks(self) -> Iterator[np.ndarray]:
         while True:
