@@ -36,7 +36,17 @@ the ported paths through their user entry points:
   one of its shards; on a machine with more than one GPU the same path
   again (eager) on a (1, n_gpu) mesh, one shard a card; then the
   time-sharded channelizer on (1, 4) logical shards (K4 frame halo, an
-  all-to-all of K5 steps) against the unsharded plain one.
+  all-to-all of K5 steps) against the unsharded plain one;
+* the station batch: K1 and K2 over 8 stations of a 25 MB block each
+  (phases 0..3 across them, carries and histories at a halo record's
+  stride) in one launch each, against their plain versions and against
+  one-station launches on the same rows, then
+  ``FusedWbfmBatchStreamer`` on that batch;
+* the exact chain and the float chain's modes: the exact integer chain on
+  the card against the CPU (bit-equal) and the golden vectors, ``simple_fm
+  --mode exact``, ``--mode boxcar`` and ``--mode fir --deemph 75`` on the
+  10.24 s station (their real-time factors), the boxcar, de-emphasis and
+  multiplex chains on the card against the CPU, and boxcar against exact.
 
 Each path's launch counts are zeroed just before it runs and read just
 after; the audio is checked (length, tone SNR, agreement with the plain
@@ -58,6 +68,7 @@ result line).  It exits non-zero without a CUDA device.
 
 from __future__ import annotations
 
+import ctypes
 import io
 import json
 import math
@@ -94,8 +105,19 @@ SHARD_DP, SHARD_SP = 2, 4
 SHARD_STATIONS = 4
 SHARD_BLOCKS = 2             # consecutive 25 MB blocks per station
 HALO_BIG_FLOATS = 1 << 20    # the multi-MB payload of the K4/K5 checks (4 MB)
+SNR_SHARDED_DB = 150.0       # the (2, 4) path against the serial chain
 RECORD_CARRY_REL = 1e-6      # the helper's carry against its plain version
 RECORD_TAIL_ABS = 1e-5       # the helper's T-1 outputs against its plain version
+
+# the station batch: K1 and K2 over 8 stations of a 25 MB block each
+BATCH_STATIONS = 8
+RECORD_FLOATS = 560          # the sharded chain's halo record: carries at its stride
+PARENT_SLACK = 1.05          # one station's K1/K2 against the parent's sources
+
+# the exact chain and the float chain's modes
+CLI_READ = 262_144           # the CLIs' read, the reference's block
+MODE_CHUNKS = 40             # 2.56 s of the path's capture, card against CPU
+SNR_BOXCAR_EXACT_DB = 60.0   # the float boxcar chain against the exact one
 
 
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit):
@@ -126,6 +148,20 @@ def snr_db(ref, got) -> float:
     ref = np.asarray(ref, dtype=np.float64)
     err = np.asarray(got, dtype=np.float64) - ref
     return float(10 * np.log10(np.mean(ref ** 2) / max(np.mean(err ** 2), 1e-30)))
+
+
+def angle_err(ref, got):
+    """``got - ref`` for angles in units of pi (K1's z), taken modulo 2 into
+    [-1, 1): z = +1 and z = -1 are one angle, and an output at that edge
+    may land on either side in two FIR summation orders."""
+    import torch
+
+    return torch.remainder(got - ref + 1, 2) - 1
+
+
+def snr_angle_db(ref, got) -> float:
+    """:func:`snr_db` of K1's z with the error taken by :func:`angle_err`."""
+    return snr_db(ref.cpu().numpy(), (ref + angle_err(ref, got)).cpu().numpy())
 
 
 def gpu_name_and_power() -> str:
@@ -644,6 +680,11 @@ def sharded_path(devices, dp: int, sp: int, blocks, serial):
             require(launches[name] == dp * len(blocks),
                     f"{name}: {launches[name]} launches, one a row a block "
                     f"is {dp * len(blocks)}")
+        # one K1 and one K2 launch a shard, over its stations
+        for name in ("fm_front", "fm_resample"):
+            require(launches[name] == dp * sp * len(blocks),
+                    f"{name}: {launches[name]} launches, one a shard a block "
+                    f"is {dp * sp * len(blocks)}")
     # the same chain run eagerly through chain.fn must give the same bits
     chain = streamer.chain
     ke, rs = WSF.initial_carry(stations, device=mesh.home)
@@ -659,7 +700,7 @@ def sharded_path(devices, dp: int, sp: int, blocks, serial):
     require(np.allclose(got, serial, rtol=1e-4, atol=1e-5),
             f"sharded vs serial: max |d| {np.abs(got - serial).max()}")
     s = snr_db(serial, got)
-    require(s >= SNR_KERNEL_DB, f"sharded vs serial: {s:.1f} dB")
+    require(s >= SNR_SHARDED_DB, f"sharded vs serial: {s:.1f} dB")
     tone = synth.tone_snr(got[0].astype(np.float64), 1_000.0, 32_000,
                           skip=1500)
     require(tone >= SNR_TONE_DB, f"sharded station 0 tone {tone:.1f} dB")
@@ -952,6 +993,10 @@ def sharded(dev, flush, u8_two) -> dict:
             "sharded_sp4_graph": host_ms(step_graph.replay)}
     ops = {"sharded_sp4": step_ops(lambda: chain.fn(shards, ke, rs)),
            "sharded_sp4_graph": step_ops(step_graph.replay)}
+    require(ops["sharded_sp4_graph"]["host_launch_calls"] == 1,
+            f"the replayed sp=4 step took "
+            f"{ops['sharded_sp4_graph']['host']} host launch calls, not one "
+            f"graph launch")
     for name, o in ops.items():
         print(f"profile {name}: {o['device_ops']} device operations "
               f"{o['device']}, busy {o['device_busy_us']:.1f} of a "
@@ -979,6 +1024,262 @@ def sharded(dev, flush, u8_two) -> dict:
                                       + ms["halo_pull_tails"]) * 1e3,
             "sharded_overhead_ratio": ms["sharded_sp4"] / ms["unsharded"],
             "sharded_graph_ratio": ms["sharded_sp4_graph"] / ms["unsharded"]}
+
+
+def batch(dev, flush, data, taps, h_poly, spec) -> dict:
+    """The station batch: K1 and K2 over BATCH_STATIONS stations of a 25 MB
+    block each (station 0 ``data``, the others random bytes; fs/4 phases
+    0..3 across them; mid-stream carries and histories as slices of
+    560-float records), one launch each, held per station against the
+    plain versions (>= 100 dB, K1's angles compared modulo 2: random bytes
+    put some outputs at the +-pi edge; the carry within 1e-3, the history
+    equal)
+    and bit-equal to a one-station launch on the same row; then the user
+    entry point ``FusedWbfmBatchStreamer`` on the batch (counts zeroed
+    before, read after: one launch of each), station 0 bit-equal to the
+    one-station streamer; then CUDA-event times of the batched launches
+    against 8 one-station launches.  Returns the numbers."""
+    import numpy as np
+    import torch
+
+    from tpu_sdr_torch.ops import fused_fm as FF
+    from tpu_sdr_torch.utils import synth
+
+    S, T = BATCH_STATIONS, spec.taps_per_phase
+    gen = torch.Generator(device=dev).manual_seed(8)
+    rows = torch.empty(S, data.numel(), dtype=torch.uint8, device=dev)
+    rows[0] = data
+    rows[1:] = torch.randint(0, 256, (S - 1, data.numel()), generator=gen,
+                             dtype=torch.uint8, device=dev)
+    phases = [j % 4 for j in range(S)]
+    phases_dev = torch.tensor(phases, dtype=torch.int32, device=dev)
+    # mid-stream carries (each row's own last chunk) and histories, in
+    # records as the sharded chain hands them to K1 and K2
+    records = torch.zeros(S, RECORD_FLOATS, device=dev)
+    _, c_mid = FF.fm_front_reference(rows[:, -spec.chunk_bytes:], phases,
+                                     FF.init_carry(dev).repeat(S, 1, 1),
+                                     taps, spec.decim)
+    records[:, :512] = c_mid.reshape(S, 512)
+    carries = records[:, :512].reshape(S, FF.STATE_ROWS, FF.LANES)
+    FF.reset_launch_counts()
+    z_k, c_k = FF.fm_front(rows, phases_dev, carries, taps, spec.decim)
+    z_r, c_r = FF.fm_front_reference(rows, phases, carries, taps, spec.decim)
+    records[:, 512:512 + T - 1] = z_r[:, -(T - 1):]
+    hists = records[:, 512:512 + T - 1]
+    a_k, h_k = FF.resample(z_r, hists, h_poly, spec.down)
+    a_r, h_r = FF.resample_reference(z_r, hists, h_poly, spec.down)
+    torch.cuda.synchronize()
+    require(FF.LAUNCHES == {"fm_front": 1, "fm_resample": 1},
+            f"the batch ran {FF.LAUNCHES}, not one launch of each")
+    require(torch.equal(h_k, h_r), "batched fm_resample: histories differ")
+    worst = {"fm_front": 1e9, "fm_resample": 1e9, "carry": 0.0}
+    err = {"fm_front": 0.0, "fm_resample": 0.0}
+    for j in range(S):
+        s_front = snr_angle_db(z_r[j], z_k[j])
+        s_rs = snr_db(a_r[j].cpu().numpy(), a_k[j].cpu().numpy())
+        c_err = float((c_k[j] - c_r[j]).abs().max())
+        require(s_front >= SNR_KERNEL_DB and s_rs >= SNR_KERNEL_DB
+                and c_err <= 1e-3, f"batch station {j} (phase {phases[j]}): "
+                f"fm_front {s_front:.1f} dB, fm_resample {s_rs:.1f} dB, "
+                f"carry off by {c_err:.3g}")
+        z1, c1 = FF.fm_front(rows[j], phases[j], carries[j].contiguous(), taps,
+                             spec.decim)
+        a1, h1 = FF.resample(z_r[j], hists[j].contiguous(), h_poly, spec.down)
+        require(torch.equal(z1, z_k[j]) and torch.equal(c1, c_k[j])
+                and torch.equal(a1, a_k[j]) and torch.equal(h1, h_k[j]),
+                f"batch station {j}: differs from a one-station launch")
+        worst = {"fm_front": min(worst["fm_front"], s_front),
+                 "fm_resample": min(worst["fm_resample"], s_rs),
+                 "carry": max(worst["carry"], c_err)}
+        err["fm_front"] = max(err["fm_front"],
+                              float(angle_err(z_r[j], z_k[j]).abs().max()))
+        err["fm_resample"] = max(err["fm_resample"],
+                                 float((a_k[j] - a_r[j]).abs().max()))
+    print(f"batch: fm_front and fm_resample over {S} stations x "
+          f"{data.numel()} B (phases {phases}, carries and histories at a "
+          f"{RECORD_FLOATS}-float stride), one launch each: worst station "
+          f"{worst['fm_front']:.1f} / {worst['fm_resample']:.1f} dB vs plain, "
+          f"carry within {worst['carry']:.3g}, history equal, bit-equal to "
+          f"one-station launches", flush=True)
+    del z_r, c_r, a_r, a_k, z1, a1
+
+    # the user entry point on the batch
+    host = rows.cpu().numpy()
+    streamer = FF.FusedWbfmBatchStreamer(S, device=dev)
+    streamer.phases = list(phases)
+    FF.reset_launch_counts()
+    t0 = time.monotonic()
+    audio = streamer.demodulate(host)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(FF.LAUNCHES)
+    require(launches == {"fm_front": 1, "fm_resample": 1},
+            f"FusedWbfmBatchStreamer ran {launches}")
+    one = FF.FusedWbfmStreamer(device=dev).demodulate(host[0])
+    require(np.array_equal(audio[0], one), "the batch streamer's station 0 "
+            "differs from the one-station streamer")
+    tone = synth.tone_snr(audio[0].astype(np.float64), 1_000.0, 32_000,
+                          skip=1500)
+    require(tone >= SNR_TONE_DB, f"batch station 0 tone {tone:.1f} dB")
+    print(f"batch path: FusedWbfmBatchStreamer, {S} stations x "
+          f"{audio.shape[1]} samples, launches {launches}, station 0 "
+          f"bit-equal to FusedWbfmStreamer, tone {tone:.1f} dB, wall "
+          f"{wall:.3f} s (with the {host.nbytes / 1e6:.0f} MB host-to-device "
+          f"copy)", flush=True)
+    del host, audio
+
+    carries_c = [carries[j].contiguous() for j in range(S)]
+    hists_c = [hists[j].contiguous() for j in range(S)]
+    ms = device_ms({
+        "fm_front_batch8": lambda: FF.fm_front(rows, phases_dev, carries,
+                                               taps, spec.decim),
+        "fm_front_single8": lambda: [FF.fm_front(rows[j], phases[j],
+                                                 carries_c[j], taps,
+                                                 spec.decim)
+                                     for j in range(S)],
+        "fm_resample_batch8": lambda: FF.resample(z_k, hists, h_poly,
+                                                  spec.down),
+        "fm_resample_single8": lambda: [FF.resample(z_k[j], hists_c[j], h_poly,
+                                                    spec.down)
+                                        for j in range(S)],
+    }, flush=flush)
+    return {"stations": S, "snr_db": worst, "err": err, "launches": launches,
+            "tone_db": tone, "wall_s": wall, "ms": ms}
+
+
+def modes(dev, u8, spec) -> dict:
+    """The exact chain and the float chain's modes.  (a) The exact integer
+    chain on the card against the same chain on the CPU, bit for bit, on
+    the 10.24 s station in 262,144-byte blocks, and stage by stage against
+    the golden vectors; (b) ``simple_fm --mode exact`` (byte-equal to the
+    streamer), ``--mode boxcar`` and ``--mode fir --deemph 75`` on it,
+    their real-time factors on the host clock (set-up paid first on one
+    read); (c) the boxcar, de-emphasis and multiplex chains on the card
+    against the CPU on its first 2.56 s, >= 100 dB; (d) the boxcar chain
+    against the exact one, >= 60 dB.  Returns the numbers."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from golden_vectors import BUF_SIGNED, DEMOD_EXPECTED, LOWPASS, RESULT
+
+    from tpu_sdr_torch.models import wbfm as TW
+    from tpu_sdr_torch.models import wbfm_exact as TE
+    from tpu_sdr_torch.ops import exact as X
+    from tpu_sdr_torch.ops import fused_fm as FF
+    from tpu_sdr_torch.utils import synth
+    from tpu_sdr_torch.utils.design import WbfmConfig
+
+    n_path = PATH_CHUNKS * spec.chunk_complex
+    capture = u8[:2 * n_path]
+
+    def stream(streamer, data):
+        return np.concatenate([streamer.demodulate(data[s:s + CLI_READ])
+                               for s in range(0, len(data), CLI_READ)])
+
+    # (a) the exact chain: card against CPU, and the golden vectors
+    exact_dev = stream(TE.WbfmExactStreamer(device=dev), capture)
+    exact_cpu = stream(TE.WbfmExactStreamer(device="cpu"), capture)
+    expect = n_path * spec.up // (spec.decim * spec.down)
+    require(exact_dev.dtype == np.int16 and abs(len(exact_dev) - expect) <= 2,
+            f"exact chain: {len(exact_dev)} samples, expected {expect}")
+    require(np.array_equal(exact_dev, exact_cpu),
+            "the exact chain on the card differs from the CPU")
+    a = np.asarray(BUF_SIGNED, dtype=np.int32)
+    lp_re, lp_im, count, _ = X.boxcar_decimate(
+        torch.from_numpy(a[0::2].copy()).to(dev),
+        torch.from_numpy(a[1::2].copy()).to(dev), X.boxcar_init(dev), 6)
+    lp = torch.stack([lp_re[:int(count)], lp_im[:int(count)]], 1).reshape(-1)
+    demod, count, _ = X.fm_discriminate(
+        torch.from_numpy(np.asarray(LOWPASS[0::2], np.int32)).to(dev),
+        torch.from_numpy(np.asarray(LOWPASS[1::2], np.int32)).to(dev),
+        torch.tensor(len(LOWPASS) // 2, device=dev),
+        X.discriminator_init(dev))
+    demod = demod[:int(count)]
+    res, count, _ = X.boxcar_resample(
+        torch.tensor(DEMOD_EXPECTED, dtype=torch.int16, device=dev),
+        torch.tensor(len(DEMOD_EXPECTED), device=dev), X.resampler_init(dev),
+        170_000, 32_000)
+    require(lp.cpu().tolist() == list(LOWPASS)
+            and demod.cpu().tolist() == list(DEMOD_EXPECTED)
+            and res[:int(count)].cpu().tolist() == list(RESULT),
+            "the exact chain on the card misses a golden vector")
+    print(f"exact chain on {dev}: {len(exact_dev)} samples over "
+          f"{len(capture)} B in {CLI_READ}-byte blocks, bit-equal to the CPU; "
+          f"boxcar decimator, discriminator and resampler bit-equal to the "
+          f"golden vectors", flush=True)
+
+    # (b) the CLIs on the card
+    runs = {"exact": ["--mode", "exact"], "boxcar": ["--mode", "boxcar"],
+            "fir_deemph75": ["--mode", "fir", "--deemph", "75"]}
+    cli, pcm = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "station.u8")
+        capture[:CLI_READ].tofile(path)
+        for argv in runs.values():  # set-up a process pays once a mode
+            run_app(["--file", path, *argv])
+        capture.tofile(path)
+        for name, argv in runs.items():
+            FF.reset_launch_counts()
+            t0 = time.monotonic()
+            pcm[name] = run_app(["--file", path, *argv])
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            cli[name] = {"wall_s": wall, "samples": len(pcm[name]),
+                         "realtime_x": n_path / wall / REALTIME_SPS,
+                         "launches": dict(FF.LAUNCHES)}
+    require(pcm["exact"].tobytes() == exact_dev.tobytes(),
+            "simple_fm --mode exact differs from the exact streamer")
+    # the tone: the fir chain's bar; the boxcar filters alias (they are
+    # held to the exact chain below, as the exact chain to its vectors)
+    for name in runs:
+        cli[name]["tone_db"] = synth.tone_snr(
+            pcm[name].astype(np.float64), 1_000.0, 32_000, skip=1500)
+    require(cli["fir_deemph75"]["tone_db"] >= SNR_TONE_DB,
+            f"simple_fm --mode fir --deemph 75: tone "
+            f"{cli['fir_deemph75']['tone_db']:.1f} dB")
+    for name, c in cli.items():
+        print(f"simple_fm {' '.join(runs[name])} on {dev}: {c['samples']} "
+              f"samples, tone {c['tone_db']:.1f} dB, wall {c['wall_s']:.3f} "
+              f"s = {c['realtime_x']:.2f}x real time (host clock), kernel "
+              f"launches {c['launches']}", flush=True)
+
+    # (c) the float chain's modes, card against CPU
+    part = capture[:2 * MODE_CHUNKS * spec.chunk_complex]
+    snrs = {}
+    configs = {"boxcar": WbfmConfig(filter_mode="boxcar"),
+               "fir_deemph75": WbfmConfig(deemphasis_tau=75e-6),
+               "boxcar_deemph75_mpx": WbfmConfig(filter_mode="boxcar",
+                                                 deemphasis_tau=75e-6,
+                                                 emit_mpx=True),
+               "fir_mpx": WbfmConfig(emit_mpx=True)}
+    for name, config in configs.items():
+        out, mpx = {}, {}
+        for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            st = TW.WbfmStreamer(config, device=d)
+            out[where] = stream(st, part)
+            mpx[where] = st.last_mpx
+        s = snr_db(out["cpu"], out["card"])
+        require(out["card"].shape == out["cpu"].shape and s >= SNR_KERNEL_DB,
+                f"{name} on the card vs the CPU: {s:.1f} dB")
+        snrs[name] = s
+        if config.emit_mpx:
+            s_mpx = snr_db(mpx["cpu"], mpx["card"])
+            require(s_mpx >= SNR_KERNEL_DB, f"{name}: multiplex {s_mpx:.1f} dB")
+            snrs[f"{name}_tap"] = s_mpx
+
+    # (d) boxcar against exact
+    box = stream(TW.WbfmStreamer(configs["boxcar"], device=dev), capture)
+    s_box, lag = synth.align_and_snr(exact_dev.astype(np.float64), box,
+                                     max_lag=4, skip=50)
+    require(lag == 0 and s_box >= SNR_BOXCAR_EXACT_DB,
+            f"boxcar vs exact: {s_box:.1f} dB at lag {lag}")
+    print(f"float modes on {dev} vs the CPU on {len(part)} B: "
+          f"{', '.join(f'{k} {v:.1f} dB' for k, v in snrs.items())}; boxcar "
+          f"vs exact {s_box:.1f} dB at lag 0", flush=True)
+    return {"cli": cli, "card_vs_cpu_db": snrs, "boxcar_vs_exact_db": s_box,
+            "exact_samples": len(exact_dev)}
 
 
 def main(argv=None) -> int:
@@ -1121,7 +1422,13 @@ def main(argv=None) -> int:
     if args.baseline_csrc:
         path, _, _ = kernels.build(args.baseline_csrc, os.path.join(
             kernels.BUILD_DIR, "baseline"))
-        plib = kernels.bind(path)
+        # the other sources' one-station entry points, declared as ours
+        # (their library may lack the rest of ours)
+        plib = ctypes.CDLL(path)
+        for name in ("tsdr_fm_front", "tsdr_fm_resample"):
+            ours = getattr(kernels.load().cdll, name)
+            getattr(plib, name).argtypes = ours.argtypes
+            getattr(plib, name).restype = ours.restype
         z_p = torch.empty(BLOCK_COMPLEX // spec.decim, device=dev)
         c_p, a_p = torch.empty_like(carry), torch.empty_like(a_r)
         h_p = torch.empty_like(hist)
@@ -1186,6 +1493,9 @@ def main(argv=None) -> int:
           f"= {n_path / app_s / 1e6:.3f} Msps = "
           f"{n_path / app_s / REALTIME_SPS:.2f}x real time", flush=True)
 
+    # ---- the exact chain and the float chain's modes ----------------------
+    md = modes(dev, u8, spec)
+
     # ---- timing on the 25 MB block --------------------------------------
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     z_r = z_r.contiguous()
@@ -1203,6 +1513,16 @@ def main(argv=None) -> int:
     }, flush=flush_buf.zero_)
     streamer = FF.FusedWbfmStreamer(device=dev)
     ms["streamer_block"] = host_ms(lambda: streamer.demodulate(u8))
+    parent_ratio = {}
+    for name in ("fm_front", "fm_resample") if parent else ():
+        parent_ratio[name] = ms[name] / ms[f"{name}_parent"]
+        print(f"one station: {name} {ms[name]:.4f} ms, the parent's sources "
+              f"{ms[f'{name}_parent']:.4f} ms, ratio "
+              f"{parent_ratio[name]:.4f} ({smi})", flush=True)
+
+    # ---- the station batch: K1 and K2 over 8 stations ---------------------
+    bt = batch(dev, flush_buf.zero_, data, taps, h_poly, spec)
+    ms.update(bt["ms"])
 
     # the bounds of K1 and K2 on the block: K1 reads 2 bytes a sample and
     # writes z, and its operations are the FIR's (re and im, an FMA a tap)
@@ -1210,12 +1530,25 @@ def main(argv=None) -> int:
     # reads z and writes the audio, 2 FLOP a tap of an output
     M = BLOCK_COMPLEX // spec.decim
     L, frames = taps.numel(), M // spec.down
-    bounds = {
-        "fm_front": bound(2 * BLOCK_COMPLEX + 4 * M + 2 * 4 * carry.numel()
-                          + 4 * L, M * (2 * 2 * L + 6 + 16)),
-        "fm_resample": bound(4 * M + 4 * frames * up + 2 * 4 * (T - 1)
-                             + 4 * up * T, 2 * up * T * frames),
+    work = {  # (bytes, operations) of one station's block
+        "fm_front": (2 * BLOCK_COMPLEX + 4 * M + 2 * 4 * carry.numel()
+                     + 4 * L, M * (2 * 2 * L + 6 + 16)),
+        "fm_resample": (4 * M + 4 * frames * up + 2 * 4 * (T - 1)
+                        + 4 * up * T, 2 * up * T * frames),
     }
+    bounds = {name: bound(*w) for name, w in work.items()}
+
+    # the batch's bounds: 8 stations' work, 8 times one station's
+    for name, (nbytes, ops) in work.items():
+        bounds_batch = bound(BATCH_STATIONS * nbytes, BATCH_STATIONS * ops)
+        bt[f"bound_{name}"] = bounds_batch
+        t_b, t_s = ms[f"{name}_batch8"], ms[f"{name}_single8"]
+        print(f"batch {name}: {BATCH_STATIONS} stations in one launch "
+              f"{t_b:.4f} ms, {BATCH_STATIONS} one-station launches "
+              f"{t_s:.4f} ms (ratio {t_b / t_s:.4f}), bound "
+              f"{bounds_batch['bound_ms']:.6f} ms ({bounds_batch['bound_by']})"
+              f" = {100 * bounds_batch['bound_ms'] / t_b:.2f}% of the batch "
+              f"({smi})", flush=True)
 
     # ---- the wideband path: K3 and multi_fm --fused ---------------------
     wb = wideband(dev, flush_buf.zero_)
@@ -1227,9 +1560,10 @@ def main(argv=None) -> int:
     ms.update(sh["ms"])
     bounds.update(sh["bounds"])
     for name, t in ms.items():
+        blocks = BATCH_STATIONS if name.endswith("8") else 1
         rate = ("" if name.startswith(("halo_pull", "ring_shift", "shard_halo"))
                 or name.endswith("_read") else
-                f" = {BLOCK_COMPLEX / t / 1e3:.1f} Msps")
+                f" = {blocks * BLOCK_COMPLEX / t / 1e3:.1f} Msps")
         print(f"time {name}: {t:.4f} ms{rate} ({smi})", flush=True)
     print(f"halo cost (the sp={SHARD_SP} step's one K4 exchange): "
           f"{sh['halo_us']:.2f} us (the previous form's two exchanges: "
@@ -1269,7 +1603,15 @@ def main(argv=None) -> int:
         "halo_us_two_exchanges": sh["halo_us_two_exchanges"],
         "sharded_overhead_ratio": sh["sharded_overhead_ratio"],
         "sharded_graph_ratio": sh["sharded_graph_ratio"],
+        "batch": {k: v for k, v in bt.items() if k != "ms"},
+        "parent_ratio": parent_ratio,
+        "modes": md,
     }), flush=True)
+
+    # the A/B gate, held after every other phase has run
+    for name, ratio in parent_ratio.items():
+        require(ratio <= PARENT_SLACK, f"{name} at one station is "
+                f"{ratio:.4f} of the parent's time")
 
     def line(name, source, replaces, count, err):
         return {"name": name, "route": "cuda", "source": source,

@@ -4,6 +4,9 @@ the kernel as it is, on one GPU.  Run from the repository root:
 
     python3 chip_variants.py
 
+``python3 chip_variants.py fm_front`` runs only the variants whose names
+start with ``fm_front`` (any prefix), beside the kernels as they are.
+
 Each variant is a copy of ``tpu_sdr_torch/csrc`` with text patches applied
 (``VARIANTS``; a patch that no longer matches the source fails the run:
 the list follows the sources of the commit it is in), built like the real
@@ -41,11 +44,25 @@ REPS = 7
 
 _K1_MMA = ("for (int kk = 0; kk < kFastKS; ++kk) kstep(kk, breg[kk]);", "")
 _K1_LOADS = ("        mbar_expect_bytes(&bars[slot], 2 * a.span);\n"
-             "        bulk_copy(dst, a.iq + 2 * k0, 2 * a.span, &bars[slot]);",
+             "        bulk_copy(dst, row.iq + 2 * k0, 2 * a.span, &bars[slot]);",
              "        mbar_arrive(&bars[slot]);")
 _K1_STORES = ("      if (r > 0) *reinterpret_cast<float2*>(zt) = make_float2(zz[0], zz[1]);\n"
               "      *reinterpret_cast<float2*>(zt + 64) = make_float2(zz[2], zz[3]);",
               "      if (zz[0] == 12345.0f) zt[0] = zz[1] + zz[2] + zz[3];")
+# K1's phase: the kernel that reads each station's at run time for one
+# phase too (the form for a phase a station), and that kernel with a switch
+# into four constant-phase bodies instead
+_K1_RUNTIME_PHASE = ("  if (a.phases != nullptr) {\n    return launch<-1, FAST>",
+                     "  if (true) {\n    return launch<-1, FAST>")
+_K1_FOUR_BODIES = (
+    """  front<FAST>(a, row, PHASE >= 0 ? PHASE
+                          : a.phases != nullptr ? (a.phases[s] & 3) : a.phase);""",
+    """  switch (a.phases != nullptr ? (a.phases[s] & 3) : a.phase) {
+    case 0: front<FAST>(a, row, 0); break;
+    case 1: front<FAST>(a, row, 1); break;
+    case 2: front<FAST>(a, row, 2); break;
+    default: front<FAST>(a, row, 3); break;
+  }""")
 _K2_TILE32 = ("for (int tile = 128; tile >= 1; tile >>= 1)",
               "for (int tile = 32; tile >= 1; tile >>= 1)")
 
@@ -61,6 +78,21 @@ _K3_FFT = ("    dft8(a);                                            // over q: i
 _K3_FIR = ("        for (int i = 0; i < kFastR; ++i) fir_tap(a, g[i], x[r + kFastR - 1 - i]);",
            "        a = x[r + kFastR - 1];")
 _K3_TILE8 = ("if ((m + 15) / 16 >= 2LL * sms) {", "if (false) {")
+
+
+# K2's station axis: one station through the batch form (its rows at
+# blockIdx.y's offsets), and that form with its row pointers restricted
+_K2_BATCH_FORM = ("    if (stations > 1) {\n      return fast ? launch<true, true>",
+                  "    if (true) {\n      return fast ? launch<true, true>")
+_K2_RESTRICT = ("""struct Row {
+  const float* z;
+  const float* hist;
+  float* audio;
+  float* hist_out;""", """struct Row {
+  const float* __restrict__ z;
+  const float* __restrict__ hist;
+  float* __restrict__ audio;
+  float* __restrict__ hist_out;""")
 
 
 def _k2_walk(n: int) -> tuple[str, str]:
@@ -81,6 +113,9 @@ VARIANTS = {
     "fm_front/half_grid": ("fm_front", "fm_front.cu", [(
         "long long grid = (long long)sms * (per_sm > 0 ? per_sm : 1);",
         "long long grid = (long long)sms;")]),
+    "fm_front/runtime_phase": ("fm_front", "fm_front.cu", [_K1_RUNTIME_PHASE]),
+    "fm_front/four_bodies": ("fm_front", "fm_front.cu",
+                             [_K1_RUNTIME_PHASE, _K1_FOUR_BODIES]),
     # blocks that walk several tiles of the block (the second buffer
     # engaged): fewer blocks, or 32-frame tiles
     "fm_resample/walk2": ("fm_resample", "fm_resample.cu", [_k2_walk(2)]),
@@ -88,6 +123,10 @@ VARIANTS = {
     "fm_resample/tile32": ("fm_resample", "fm_resample.cu", [_K2_TILE32]),
     "fm_resample/tile32_walk4": ("fm_resample", "fm_resample.cu",
                                  [_K2_TILE32, _k2_walk(4)]),
+    "fm_resample/batch_form": ("fm_resample", "fm_resample.cu",
+                               [_K2_BATCH_FORM]),
+    "fm_resample/batch_form_restrict": ("fm_resample", "fm_resample.cu",
+                                        [_K2_BATCH_FORM, _K2_RESTRICT]),
     "fm_resample/no_compute": ("fm_resample", "fm_resample.cu", [(
         "        switch (quad) {", "        v = make_float4(x[0], 0.0f, 0.0f, 0.0f);\n"
         "        if (x[1] == 12345.0f) switch (quad) {")]),
@@ -139,7 +178,8 @@ VARIANTS = {
 
 
 def build_variant(kernels, name: str, root: str):
-    """The bound library of variant ``name``, built under ``root``."""
+    """Variant ``name`` built under ``root``: (library path, compiler
+    output)."""
     _, fname, patches = VARIANTS[name]
     d = os.path.join(root, name.replace("/", "_"))
     os.makedirs(d)
@@ -155,12 +195,22 @@ def build_variant(kernels, name: str, root: str):
         src = src.replace(old, new)
     with open(path, "w") as f:
         f.write(src)
-    return kernels.build(d, os.path.join(d, "out"))[0]
+    path, _, log = kernels.build(d, os.path.join(d, "out"))
+    return path, log
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import numpy as np
     import torch
+
+    p = argparse.ArgumentParser(description="Time variants of the kernel "
+                                "sources against the kernels as they are.")
+    p.add_argument("prefix", nargs="?", default="",
+                   help="run only the variants whose names start with it")
+    args = p.parse_args(argv)
+    variants = {k: v for k, v in VARIANTS.items() if k.startswith(args.prefix)}
 
     if not torch.cuda.is_available():
         print("chip_variants: no CUDA device available", file=sys.stderr)
@@ -239,10 +289,15 @@ def main() -> int:
                 "fm_resample/as_is": ("fm_resample", lib),
                 "pfb_channelize/as_is": ("pfb_channelize", lib),
                 "copy": ("copy", None), "copy_k3": ("copy_k3", None)}
-        with ThreadPoolExecutor(min(8, len(VARIANTS))) as pool:
-            paths = pool.map(lambda n: build_variant(kernels, n, root), VARIANTS)
-            for name, path in zip(VARIANTS, paths):
+        with ThreadPoolExecutor(max(1, min(8, len(variants)))) as pool:
+            paths = pool.map(lambda n: build_variant(kernels, n, root),
+                             variants)
+            for name, (path, log) in zip(variants, paths):
                 runs[name] = (VARIANTS[name][0], kernels.bind(path))
+                # the first source's kernels (fm_front.cu) lead the log
+                regs = [line.split(":")[-1].strip() for line in
+                        log.splitlines() if "registers" in line][:2]
+                print(f"{name}: first kernels {regs}", flush=True)
         flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)

@@ -613,6 +613,9 @@ def test_graph_replay_equals_the_eager_chain(dev, dp, sp):
     assert _launches() == eager_launches
     assert eager_launches["halo_pull"] == 3 * dp
     assert eager_launches["shard_halo"] == 3 * dp
+    # one K1 and one K2 launch a shard, whatever its stations
+    assert eager_launches["fm_front"] == 3 * dp * sp
+    assert eager_launches["fm_resample"] == 3 * dp * sp
     for e, g in zip(eager, graphed):
         assert np.array_equal(e, g)
     assert torch.equal(streamer.states, ke)
@@ -621,3 +624,212 @@ def test_graph_replay_equals_the_eager_chain(dev, dp, sp):
     streamer.reset()
     again = streamer.demodulate(blocks[0])
     assert np.array_equal(again, eager[0])
+
+
+# ---- K1 and K2 over a station axis -----------------------------------------
+
+def _station_rows(dev, stations, n_bytes, seed):
+    """(stations, n_bytes) u8 on ``dev``: station 0 a synthetic capture,
+    the others random bytes."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, 256, (stations, n_bytes), dtype=np.uint8)
+    u8, _ = synth.synth_wbfm_u8(n_bytes // 2, capture_rate=1_020_000,
+                                seed=seed)
+    rows[0] = np.asarray(u8, dtype=np.uint8)[:n_bytes]
+    return torch.from_numpy(rows).to(dev)
+
+
+def _strided_carries(dev, stations, taps, data, record=560):
+    """Mid-stream (stations, 4, 128) carries as slices of (stations,
+    record) records, as the sharded chain hands them to K1."""
+    recs = torch.zeros(stations, record, device=dev)
+    for j in range(stations):
+        _, c = FF.fm_front_reference(data[j, -2 * SPEC.decim * 500:], j % 4,
+                                     FF.init_carry(dev), taps, SPEC.decim)
+        recs[j, :512] = c.reshape(-1)
+    return recs[:, :512].reshape(stations, FF.STATE_ROWS, FF.LANES)
+
+
+@pytest.mark.parametrize("stations,m", [(4, 21_760), (3, 40_003), (8, 127)])
+def test_fm_front_batch_matches_plain_and_single_launches(dev, stations, m):
+    """One launch over the stations, phases 0..3 across them, carries at a
+    record's stride: each station >= 100 dB against the plain version, its
+    carry within 1e-3, and bit-equal to a one-station launch on the same
+    row (40,003 outputs a station: rows and z off 16- and 8-byte
+    alignment)."""
+    taps, _ = FF.make_kernel_params(device=dev)
+    data = _station_rows(dev, stations, 2 * SPEC.decim * m, seed=m)
+    carries = _strided_carries(dev, stations, taps, data)
+    phases = [j % 4 for j in range(stations)]
+    before = FF.LAUNCHES["fm_front"]
+    z, c = FF.fm_front(data, phases, carries, taps, SPEC.decim)
+    assert FF.LAUNCHES["fm_front"] == before + 1
+    assert z.shape == (stations, m) and c.shape == (stations, 4, 128)
+    zr, cr = FF.fm_front_reference(data, phases, carries, taps, SPEC.decim)
+    for j in range(stations):
+        # z is an angle / pi: an output at the +-1 edge of random bytes
+        # may round to either side in the two FIR summation orders
+        err = torch.remainder(z[j] - zr[j] + 1, 2) - 1
+        assert _snr_db(zr[j].cpu(), (zr[j] + err).cpu()) >= 100.0, j
+        torch.testing.assert_close(c[j], cr[j], rtol=1e-5, atol=1e-3)
+        z1, c1 = FF.fm_front(data[j], phases[j], carries[j].contiguous(),
+                             taps, SPEC.decim)
+        assert torch.equal(z1, z[j]) and torch.equal(c1, c[j]), j
+
+
+def test_fm_front_batch_writes_strided_out(dev):
+    """``out`` rows at a stride, as the wideband tail or a caller's buffer
+    gives them; one phase for every station."""
+    taps, _ = FF.make_kernel_params(device=dev)
+    data = _station_rows(dev, 2, CHUNK, seed=5)
+    carries = FF.init_carry(dev).repeat(2, 1, 1)
+    m = CHUNK // 2 // SPEC.decim
+    out = torch.zeros(2, m + 3, device=dev)[:, 1:m + 1]
+    z, _ = FF.fm_front(data, 2, carries, taps, SPEC.decim, out=out)
+    assert z.data_ptr() == out.data_ptr()
+    zr, _ = FF.fm_front_reference(data, 2, carries, taps, SPEC.decim)
+    assert _snr_db(zr.cpu(), out.cpu()) >= 100.0
+
+
+@pytest.mark.parametrize("stations,frames", [(4, 256), (3, 1_237), (8, 1)])
+def test_fm_resample_batch_matches_plain_and_single_launches(dev, stations,
+                                                              frames):
+    """One launch over the stations, histories at a record's stride, z
+    rows off 16-byte alignment (1,237 frames of 85): >= 100 dB against the
+    plain version, the history equal, bit-equal to one-station launches."""
+    _, h_poly = FF.make_kernel_params(device=dev)
+    rng = np.random.default_rng(frames)
+    z = torch.from_numpy(rng.uniform(-1, 1, (stations, frames * SPEC.down))
+                         .astype(np.float32)).to(dev)
+    recs = torch.from_numpy(rng.uniform(-1, 1, (stations, 560)).astype(
+        np.float32)).to(dev)
+    hists = recs[:, 512:512 + SPEC.taps_per_phase - 1]
+    before = FF.LAUNCHES["fm_resample"]
+    a, h = FF.resample(z, hists, h_poly, SPEC.down)
+    assert FF.LAUNCHES["fm_resample"] == before + 1
+    assert a.shape == (stations, frames * SPEC.up)
+    ar, hr = FF.resample_reference(z, hists, h_poly, SPEC.down)
+    assert torch.equal(h, hr)
+    for j in range(stations):
+        assert _snr_db(ar[j].cpu(), a[j].cpu()) >= 100.0, j
+        a1, h1 = FF.resample(z[j], hists[j].contiguous(), h_poly, SPEC.down)
+        assert torch.equal(a1, a[j]) and torch.equal(h1, h[j]), j
+
+
+def test_fused_batch_streamer_on_the_card_matches_cpu(dev):
+    """``FusedWbfmBatchStreamer`` on the card (one K1 and one K2 launch a
+    call) against the same streamer on the CPU, stations at phases 0..3."""
+    data = _station_rows(torch.device("cpu"), 4, 2 * CHUNK, seed=9).numpy()
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        st = FF.FusedWbfmBatchStreamer(4, device=d)
+        st.phases = [0, 1, 2, 3]
+        FF.reset_launch_counts()
+        outs[d.type] = np.concatenate([st.demodulate(data[:, :CHUNK + 100]),
+                                       st.demodulate(data[:, CHUNK + 100:])],
+                                      axis=1)
+        launched = FF.LAUNCHES["fm_front"], FF.LAUNCHES["fm_resample"]
+        assert launched == ((2, 2) if d.type == "cuda" else (0, 0))
+    assert outs["cuda"].shape == outs["cpu"].shape == (4, 2 * SPEC.audio_per_chunk)
+    for j in range(4):
+        assert _snr_db(outs["cpu"][j], outs["cuda"][j]) >= 100.0, j
+
+
+def test_batch_wrappers_reject_bad_rows(dev):
+    taps, h_poly = FF.make_kernel_params(device=dev)
+    data = torch.zeros(2, 2 * 6 * 128, dtype=torch.uint8, device=dev)
+    carries = FF.init_carry(dev).repeat(2, 1, 1)
+    with pytest.raises(ValueError):  # a phase for 3 stations
+        FF.fm_front(data, [0, 1, 2], carries, taps, SPEC.decim)
+    with pytest.raises(ValueError):  # phase 4
+        FF.fm_front(data, [0, 4], carries, taps, SPEC.decim)
+    with pytest.raises(ValueError):  # rows not contiguous
+        FF.fm_front(torch.zeros(2, 2 * 2 * 6 * 128, dtype=torch.uint8,
+                                device=dev)[:, ::2], 0, carries, taps,
+                    SPEC.decim)
+    with pytest.raises(ValueError):  # carries for 1 station
+        FF.fm_front(data, 0, carries[:1], taps, SPEC.decim)
+    with pytest.raises(ValueError):  # overlapping histories
+        FF.resample(torch.zeros(2, 170, device=dev),
+                    torch.zeros(60, device=dev).as_strided((2, 47), (5, 1)),
+                    h_poly, SPEC.down)
+
+
+# ---- the exact chain and the float chain's modes on the card ---------------
+
+def test_exact_chain_on_the_card_is_bit_equal_to_cpu(dev):
+    """The integer chain on the card (float64 atan2 there too) against the
+    CPU, bit for bit, in the reference's blocks and at odd multiples of 8."""
+    from tpu_sdr_torch.models import wbfm_exact as TE
+
+    u8, _ = synth.synth_wbfm_u8(400_000, capture_rate=1_020_000, seed=12)
+    u8 = np.asarray(u8, dtype=np.uint8)
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        st = TE.WbfmExactStreamer(device=d)
+        cuts = [0, 262_144, 262_144 + 8 * 4001, len(u8)]
+        outs[d.type] = np.concatenate([st.demodulate(u8[a:b]) for a, b in
+                                       zip(cuts[:-1], cuts[1:])])
+    assert len(outs["cpu"]) > 10_000
+    np.testing.assert_array_equal(outs["cuda"], outs["cpu"])
+
+
+@pytest.mark.parametrize("kw", [{"filter_mode": "boxcar"},
+                                {"filter_mode": "fir", "deemphasis_tau": 75e-6},
+                                {"filter_mode": "boxcar", "emit_mpx": True,
+                                 "deemphasis_tau": 50e-6}])
+def test_float_modes_on_the_card_match_cpu(capture, dev, kw):
+    from tpu_sdr_torch.models import wbfm as TW
+
+    config = design.WbfmConfig(**kw)
+    outs, mpx = {}, {}
+    for d in (dev, torch.device("cpu")):
+        st = TW.WbfmStreamer(config, device=d)
+        outs[d.type] = np.concatenate([st.demodulate(capture[:100_001]),
+                                       st.demodulate(capture[100_001:])])
+        mpx[d.type] = st.last_mpx
+    assert outs["cuda"].shape == outs["cpu"].shape
+    assert _snr_db(outs["cpu"], outs["cuda"]) >= 100.0
+    if kw.get("emit_mpx"):
+        assert _snr_db(mpx["cpu"], mpx["cuda"]) >= 100.0
+
+
+def test_float_batch_on_the_card_matches_cpu(capture, dev):
+    """The float chain's station batch (unaligned calls: the polyphase
+    resampler with its t0) on the card against the CPU."""
+    from tpu_sdr_torch.models import wbfm_batched as TB
+
+    data = np.stack([capture, capture[::-1].copy(), np.roll(capture, 999)])
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        st = TB.WbfmBatchStreamer(3, device=d)
+        outs[d.type] = np.concatenate([st.demodulate(data[:, :70_001]),
+                                       st.demodulate(data[:, 70_001:])],
+                                      axis=1)
+    assert outs["cuda"].shape == outs["cpu"].shape
+    for j in range(3):
+        assert _snr_db(outs["cpu"][j], outs["cuda"][j]) >= 100.0, j
+
+
+@pytest.mark.parametrize("mode", ["exact", "boxcar"])
+def test_cli_exact_and_boxcar_modes_on_the_card(capture, dev, tmp_path, mode):
+    from tpu_sdr_torch.apps import simple_fm
+
+    path = tmp_path / "cap.u8"
+    np.tile(capture, 4).tofile(path)
+    pcm = {}
+    for device in ("cuda", "cpu"):
+        raw, saved = io.BytesIO(), sys.stdout
+        sys.stdout = io.TextIOWrapper(raw, write_through=True)
+        try:
+            assert simple_fm.main(["--file", str(path), "--mode", mode,
+                                   "--torch-device", device]) == 0
+        finally:
+            sys.stdout.detach()
+            sys.stdout = saved
+        pcm[device] = np.frombuffer(raw.getvalue(), dtype="<i2")
+    assert len(pcm["cuda"]) == len(pcm["cpu"]) > 10_000
+    if mode == "exact":
+        assert pcm["cuda"].tobytes() == pcm["cpu"].tobytes()
+    else:
+        assert np.abs(pcm["cuda"].astype(int) - pcm["cpu"]).max() <= 1

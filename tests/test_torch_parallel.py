@@ -265,9 +265,16 @@ def test_counts_partition_total():
 # ---- refusals ------------------------------------------------------------
 
 def test_boxcar_and_bad_halo_modes_are_refused():
+    """The float chain's sharded boxcar mode is ported and runs (against
+    JAX in tests/test_torch_wbfm_modes.py), but not with carry_io, as in
+    JAX; the fused chain, FIR-only like JAX's Pallas chain, refuses it."""
     boxcar = WbfmConfig(filter_mode="boxcar")
-    with pytest.raises(NotImplementedError):
-        WS.make_sharded_wbfm(_cpu_mesh(1, 2), boxcar)
+    chain = WS.make_sharded_wbfm(_cpu_mesh(1, 2), boxcar)
+    audio, counts = WS.sharded_wbfm_apply(chain, _stations(1, 2 * 6 * 4096))
+    assert chain.assemble(audio, counts).shape == (1, 2 * 6 * 4096 // 6 * 16
+                                                   // 85)
+    with pytest.raises(ValueError):
+        WS.make_sharded_wbfm(_cpu_mesh(1, 2), boxcar, carry_io=True)
     with pytest.raises(NotImplementedError):
         WSF.make_sharded_wbfm_fused(_cpu_mesh(1, 2), boxcar)
     with pytest.raises(ValueError):  # a shard of a part of a kernel chunk

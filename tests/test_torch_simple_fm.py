@@ -69,11 +69,62 @@ def test_cli_fused_agrees_with_fir(capture_file, capsysbinary):
 
 @pytest.mark.parametrize("extra", [["--mode", "exact"], ["--mode", "stereo"],
                                    ["--rds"], ["--deemph", "75"]])
-def test_cli_unported_options_exit_with_usage_error(capture_file, extra):
-    with pytest.raises(SystemExit) as exc:
-        simple_fm.main(["--file", capture_file, "--torch-device", "cpu",
-                        *extra])
-    assert exc.value.code == 2
+def test_cli_unported_options_exit_with_usage_error(capture_file,
+                                                    capsysbinary, extra):
+    """``--mode stereo`` and ``--rds`` are still refused (exit 2, naming the
+    JAX CLI); ``--mode exact`` and ``--deemph``, refused until they were
+    ported, now write audio."""
+    argv = ["--file", capture_file, "--torch-device", "cpu", *extra]
+    if extra in (["--mode", "stereo"], ["--rds"]):
+        with pytest.raises(SystemExit) as exc:
+            simple_fm.main(argv)
+        assert exc.value.code == 2
+        assert "tpu_sdr.apps.simple_fm" in capsysbinary.readouterr().err.decode()
+        return
+    pcm = _run(argv, capsysbinary)
+    n_complex = os.path.getsize(capture_file) // 2
+    assert abs(len(pcm) - n_complex * 16 // (6 * 85)) <= 2048
+
+
+def test_cli_deemph_needs_a_float_chain(capture_file):
+    for mode in ("exact", "fused"):
+        with pytest.raises(SystemExit) as exc:
+            simple_fm.main(["--file", capture_file, "--torch-device", "cpu",
+                            "--mode", mode, "--deemph", "75"])
+        assert exc.value.code == 2
+
+
+def _jax_cli(argv, capsysbinary):
+    from tpu_sdr.apps import simple_fm as jsimple
+
+    assert jsimple.main(argv) == 0
+    return np.frombuffer(capsysbinary.readouterr().out, dtype="<i2")
+
+
+def test_cli_exact_is_byte_equal_to_the_jax_cli(capture_file, capsysbinary):
+    args = ["--file", capture_file, "--mode", "exact"]
+    got = _run(args + ["--torch-device", "cpu"], capsysbinary)
+    exp = _jax_cli(args, capsysbinary)
+    assert len(got) > 10_000
+    assert got.tobytes() == exp.tobytes()
+
+
+@pytest.mark.parametrize("extra", [["--mode", "boxcar"],
+                                   ["--mode", "fir", "--deemph", "75"],
+                                   ["--mode", "boxcar", "--deemph", "50"]])
+def test_cli_float_modes_match_the_jax_cli(capture_file, capsysbinary, extra):
+    """Within the float tolerance of the JAX CLI's s16 (whose fir chain
+    runs split-bf16 weights, the port f32: >= 80 dB), and the tone no worse
+    than the JAX CLI's by more than 1 dB."""
+    args = ["--file", capture_file, *extra]
+    got = _run(args + ["--torch-device", "cpu"], capsysbinary).astype(float)
+    exp = _jax_cli(args, capsysbinary).astype(float)
+    assert got.shape == exp.shape and len(got) > 10_000
+    err = got - exp
+    assert 10 * np.log10(np.mean(exp ** 2) / max(np.mean(err ** 2),
+                                                 1e-30)) >= 80.0
+    tone = synth.tone_snr(got, 1_000.0, 32_000, skip=1500)
+    assert tone >= synth.tone_snr(exp, 1_000.0, 32_000, skip=1500) - 1.0
 
 
 def test_cli_requires_cuda_by_default(capture_file, monkeypatch):

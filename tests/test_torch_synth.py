@@ -37,3 +37,15 @@ def test_tone_snr_matches_jax_package():
     assert got == pytest.approx(jsynth.tone_snr(x, 1_000.0, 32_000, skip=100),
                                 abs=1e-9)
     assert 35.0 < got < 40.0
+
+
+@pytest.mark.parametrize("shift", [0, 3, -2])
+def test_align_and_snr_matches_jax_package(shift):
+    rng = np.random.default_rng(2)
+    ref = rng.standard_normal(3000)
+    test = np.roll(ref, -shift)[:2900] * 0.7 + 1e-3 * rng.standard_normal(2900)
+    got = synth.align_and_snr(ref, test, max_lag=4, skip=10)
+    exp = jsynth.align_and_snr(ref, test, max_lag=4, skip=10)
+    assert got[1] == exp[1] == shift
+    assert got[0] == pytest.approx(exp[0], abs=1e-9)
+    assert synth.snr_db(ref, ref) == jsynth.snr_db(ref, ref) == np.inf

@@ -85,12 +85,23 @@ def test_tone_recovered(capture):
 @pytest.mark.parametrize("kw", [{"filter_mode": "boxcar"},
                                 {"deemphasis_tau": 75e-6},
                                 {"emit_mpx": True}])
-def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError):
-        TW.WbfmStreamer(WbfmConfig(**kw), device=CPU)
+def test_unported_options_raise(capture, kw):
+    """The options this test once saw refused (the boxcar mode, de-emphasis,
+    the multiplex tap) are ported: each runs and matches the JAX chain with
+    the same config (tests/test_torch_wbfm_modes.py holds them further)."""
+    ref = JW.WbfmStreamer(JW.WbfmConfig(mxu_precision="f32", **kw))
+    port = TW.WbfmStreamer(WbfmConfig(**kw), device=CPU)
+    exp = ref.demodulate(capture[:262_144])
+    got = port.demodulate(capture[:262_144])
+    assert got.shape == exp.shape and len(got) > 0
+    assert _snr_db(exp, got) >= 100.0
+    if kw.get("emit_mpx"):
+        assert _snr_db(ref.last_mpx, port.last_mpx) >= 100.0
 
 
 def test_demodulate_block_rejects_unaligned_block():
+    """1,024 bytes is not a whole number of 2*decim-byte groups (any such
+    multiple now runs: tests/test_torch_wbfm_modes.py)."""
     config = WbfmConfig()
     params = TW.WbfmParams(config, CPU)
     with pytest.raises(ValueError):

@@ -6,10 +6,16 @@ Reads a raw u8 I/Q capture (``--file``), a remote rtl_tcp server
 file loop and demod loop below, ``stream.feeder``, the device control
 plane ``api``), and demodulates on a CUDA device:
 
+  exact  the bit-exact integer chain (the conformance path), its s16
+         audio written as it is
+  boxcar the float twin of the reference's boxcar filters (>= 60 dB
+         against exact)
   fir    the float32 chain in plain PyTorch (default, as in the JAX CLI)
   fused  the two hand-written CUDA kernels (fm_front -> fm_resample);
          ``--mode pallas``, the JAX CLI's name for its kernel chain, is
          the same mode
+
+``--deemph US`` adds de-emphasis to the fir and boxcar chains.
 
 The GPU is required: without one the CLI raises, unless ``--torch-device
 cpu`` asks for the plain PyTorch versions on the CPU.
@@ -33,31 +39,44 @@ log = logging.getLogger("simple_fm")
 FREQUENCY = 94_900_000  # Hz (ref simple_fm.rs:25)
 SAMPLE_RATE = 170_000  # demod rate (ref simple_fm.rs:26)
 
-PORTED_MODES = ("fir", "fused")
+PORTED_MODES = ("exact", "boxcar", "fir", "fused")
 MODE_ALIASES = {"pallas": "fused"}  # the JAX CLI's spellings
-UNPORTED_MODES = ("exact", "boxcar", "stereo")
+UNPORTED_MODES = ("stereo",)
+DEEMPH_MODES = ("fir", "boxcar")
 
 
-def make_demodulator(mode: str, device):
+def make_demodulator(mode: str, device, deemph_us: float = 0.0):
     """Return (demod_fn(u8 block) -> np s16 audio, description)."""
     import torch
 
     from tpu_sdr_torch.native import f32_to_s16
 
-    if mode == "fused":
+    if mode == "exact":
+        from tpu_sdr_torch.models.wbfm_exact import WbfmExactStreamer
+
+        streamer = WbfmExactStreamer(device=device)
+        desc = "exact integer chain"
+    elif mode == "fused":
         from tpu_sdr_torch.ops.fused_fm import FusedWbfmStreamer
 
         streamer = FusedWbfmStreamer(device=device)
         desc = "fused chain (fm_front + fm_resample kernels)"
-    elif mode == "fir":
+    elif mode in DEEMPH_MODES:
         from tpu_sdr_torch.models.wbfm import WbfmStreamer
+        from tpu_sdr_torch.utils.design import WbfmConfig
 
-        streamer = WbfmStreamer(device=device)
-        desc = "float chain (fir)"
+        streamer = WbfmStreamer(WbfmConfig(filter_mode=mode,
+                                           deemphasis_tau=deemph_us * 1e-6),
+                                device=device)
+        desc = f"float chain ({mode})"
+        if deemph_us:
+            desc += f", {deemph_us:.0f}us de-emphasis"
     else:
         raise ValueError(f"mode {mode!r} is not ported yet")
     if device.type == "cuda":
         desc += f" on {torch.cuda.get_device_name(device)}"
+    if mode == "exact":  # its s16 audio goes out as it is
+        return streamer.demodulate, f"{desc}, {device}"
 
     def demod(buf):
         return f32_to_s16(streamer.demodulate(buf))
@@ -117,13 +136,15 @@ def main(argv=None) -> int:
     p.add_argument("--mode", choices=(*PORTED_MODES, *MODE_ALIASES,
                                       *UNPORTED_MODES),
                    default="fir",
-                   help="fir (plain PyTorch) or fused (the CUDA kernels); "
-                        "pallas is the JAX CLI's name for fused")
+                   help="exact (integer), boxcar, fir (plain PyTorch) or "
+                        "fused (the CUDA kernels); pallas is the JAX CLI's "
+                        "name for fused")
     p.add_argument("--torch-device", default="cuda",
                    help="where to demodulate: cuda (default; raises without "
                         "a GPU), cuda:N, or cpu for the plain PyTorch versions")
     p.add_argument("--deemph", type=float, default=0.0, metavar="US",
-                   help="de-emphasis (not ported yet)")
+                   help="de-emphasis time constant in microseconds (75 US / "
+                        "50 EU; fir and boxcar modes)")
     p.add_argument("--rds", action="store_true", help="RDS (not ported yet)")
     p.add_argument("--blocks", type=int, default=0,
                    help="stop after N blocks (device/tcp modes; 0 = run "
@@ -134,16 +155,17 @@ def main(argv=None) -> int:
         p.error(f"--mode {args.mode} is not ported yet (ported: "
                 f"{', '.join(PORTED_MODES)}); use python -m "
                 "tpu_sdr.apps.simple_fm")
-    if args.deemph or args.rds:
-        p.error("--deemph and --rds are not ported yet; use python -m "
-                "tpu_sdr.apps.simple_fm")
+    if args.rds:
+        p.error("--rds is not ported yet; use python -m tpu_sdr.apps.simple_fm")
+    if args.deemph and args.mode not in DEEMPH_MODES:
+        p.error(f"--deemph applies to --mode {' and '.join(DEEMPH_MODES)}")
 
     from tpu_sdr_torch.device import resolve_device
     from tpu_sdr_torch.utils.design import optimal_settings
 
     device = resolve_device(args.torch_device)
     radio, _demod_cfg = optimal_settings(args.freq, SAMPLE_RATE)
-    demod, desc = make_demodulator(args.mode, device)
+    demod, desc = make_demodulator(args.mode, device, args.deemph)
     log.info("Demodulating with %s", desc)
 
     if args.file:

@@ -1,7 +1,10 @@
 """Hand weights and streaming state between the JAX package and the port.
 
 Everything crosses as numpy arrays (``np.asarray`` of a JAX array), so this
-module never imports jax.  The fused chain's state has the JAX kernel's
+module never imports jax.  The float chain's six-field ``WbfmState`` and
+the exact chain's ``WbfmExactState`` convert field for field (a stacked
+station-batch state keeps its station axis); the fused chain's and its
+batch's carries keep the kernel layout.  The fused chain's state has the JAX kernel's
 layout, so the (4, 128) carry, the resampler history and the fs/4 phase
 convert 1:1; the weights convert from the TPU kernel's forms — the
 split-bf16 banded decimator ``(W_hi, W_lo)`` and the packed resampler
@@ -28,8 +31,10 @@ import numpy as np
 import torch
 
 from tpu_sdr_torch.models import wbfm as M
+from tpu_sdr_torch.models import wbfm_exact as WE
 from tpu_sdr_torch.models import wbfm_wideband as WB
 from tpu_sdr_torch.ops import channelizer as chan
+from tpu_sdr_torch.ops import exact as X
 from tpu_sdr_torch.ops import fm as F
 from tpu_sdr_torch.ops import fused_channelizer as FC
 from tpu_sdr_torch.ops.fused_fm import FusedWbfmSpec, effective_taps
@@ -61,37 +66,90 @@ def params_from_jax(w_hi, w_lo, v, spec: FusedWbfmSpec, *,
     return taps.to(device), h_poly.to(device)
 
 
-def state_from_jax(carry, resamp_hist, phase, *, device: str | torch.device
-                   ) -> tuple[torch.Tensor, torch.Tensor, int]:
+def state_from_jax(carry, resamp_hist, phase, *, device: str | torch.device):
     """A ``PallasWbfmStreamer``'s (state, resamp_hist, phase) -> the port's
-    (carry, resampler history, phase)."""
+    (carry, resampler history, phase); a ``PallasWbfmBatchStreamer``'s
+    (states (S, 4, 128), resamp_hists (S, T-1), phases (S,)) -> the
+    ``FusedWbfmBatchStreamer``'s, the phases a list."""
+    phase = np.asarray(phase)
     return (torch.from_numpy(np.array(carry, dtype=np.float32)).to(device),
             torch.from_numpy(np.array(resamp_hist, dtype=np.float32)).to(device),
-            int(phase))
+            int(phase) if phase.ndim == 0 else [int(p) for p in phase])
 
 
-def state_to_jax(carry: torch.Tensor, resamp_hist: torch.Tensor, phase: int
-                 ) -> tuple[np.ndarray, np.ndarray, int]:
-    """The port's fused state -> numpy (state, resamp_hist, phase) for a
-    ``PallasWbfmStreamer``."""
-    return carry.cpu().numpy(), resamp_hist.cpu().numpy(), int(phase)
+def state_to_jax(carry: torch.Tensor, resamp_hist: torch.Tensor, phase):
+    """The port's fused state (one station or a batch) -> numpy (state,
+    resamp_hist, phase) for a ``PallasWbfmStreamer`` (or the batch's, the
+    phases an int32 array)."""
+    return (carry.cpu().numpy(), resamp_hist.cpu().numpy(),
+            int(phase) if isinstance(phase, int)
+            else np.asarray(phase, dtype=np.int32))
 
 
 def wbfm_state_from_jax(state, *, device: str | torch.device) -> M.WbfmState:
-    """A JAX float-chain ``WbfmState`` on the aligned resampler path (its
-    fractional phase ``t0`` is 0) -> the port's float-chain state."""
-    if int(np.asarray(state.resamp.t0)) != 0:
-        raise ValueError("the port's float chain runs the aligned resampler "
-                         "only (t0 must be 0)")
-
+    """A JAX float-chain ``WbfmState`` (all six carries) -> the port's; the
+    resampler's ``t0`` and the boxcar accumulator become ints.  A stacked
+    (station batch) state keeps its station axis; its stations must share
+    the fs/4 phase, ``t0`` and the accumulator, as the JAX batch's shared
+    count assumes."""
     def t(x):
         return torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
 
     return M.WbfmState(
-        int(np.asarray(state.rot.phase)),
+        _shared_int(state.rot.phase, "fs/4 phase"),
         F.FirState(t(state.fir.hist_re), t(state.fir.hist_im)),
         F.QuadState(t(state.quad.pre_re), t(state.quad.pre_im)),
-        F.AlignedResampleState(t(state.resamp.hist)))
+        F.ResampleState(t(state.resamp.hist),
+                        _shared_int(state.resamp.t0, "t0")),
+        F.BoxcarResampleState(t(state.box_resamp.now),
+                              _shared_int(state.box_resamp.acc, "acc")),
+        F.DeemphState(t(state.deemph.y_prev)))
+
+
+def _shared_int(x, what: str) -> int:
+    """One int from a JAX scalar, or from the equal entries of a stacked
+    station batch."""
+    v = np.asarray(x).reshape(-1)
+    if v.size == 0 or (v != v[0]).any():
+        raise ValueError(f"the stations' {what} differ: {v.tolist()}")
+    return int(v[0])
+
+
+def wbfm_state_to_jax(state: M.WbfmState, stations: int | None = None):
+    """The port's float-chain state -> numpy nested as the JAX
+    ``WbfmState``'s fields: ((phase,), (hist_re, hist_im), (pre_re,
+    pre_im), (hist, t0), (now, acc), (y_prev,)), the ints as int32 (one a
+    station when ``stations`` is given)."""
+    def n(x):
+        return x.cpu().numpy()
+
+    def i(v):
+        return np.int32(v) if stations is None else np.full(stations, v,
+                                                             np.int32)
+
+    return ((i(state.rot),), (n(state.fir.hist_re), n(state.fir.hist_im)),
+            (n(state.quad.pre_re), n(state.quad.pre_im)),
+            (n(state.resamp.hist), i(state.resamp.t0)),
+            (n(state.box_resamp.now), i(state.box_resamp.acc)),
+            (n(state.deemph.y_prev),))
+
+
+def exact_state_from_jax(state, *, device: str | torch.device
+                         ) -> WE.WbfmExactState:
+    """A JAX ``WbfmExactState`` -> the port's (0-d int32 tensors)."""
+    def t(x):
+        return torch.from_numpy(np.array(x, dtype=np.int32)).to(device)
+
+    return WE.WbfmExactState(
+        X.BoxcarState(*(t(x) for x in state.boxcar)),
+        X.DiscriminatorState(*(t(x) for x in state.discr)),
+        X.ResamplerState(*(t(x) for x in state.resamp)))
+
+
+def exact_state_to_jax(state: WE.WbfmExactState):
+    """The port's exact-chain state -> numpy int32 nested as the JAX
+    ``WbfmExactState``'s fields."""
+    return tuple(tuple(x.cpu().numpy() for x in part) for part in state)
 
 
 def _tensor(x, device) -> torch.Tensor:

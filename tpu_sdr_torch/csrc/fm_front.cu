@@ -66,6 +66,23 @@
 // [0, L-1) the rotated FIR history in the x255 scale (samples -(L-1)..-1),
 // rows 2/3 the last 128 decimated samples (lane 127 is the
 // discriminator's previous sample), other lanes passed through.
+//
+// Stations.  One launch runs a batch of stations, as the TPU kernel's
+// (stations, nchunks) grid does: blockIdx.y is the station, whose bytes,
+// carries and z row sit at strides of their own (the sharded chain's
+// carries are slices of its halo records), so a row's alignment is worked
+// out in the kernel.  A station's blocks split one wave of the card with
+// the others; block x = 0 of each writes that station's carry.  The fs/4
+// phase is one for all stations or one a station (an int32 array on the
+// device).  A lane's rotation pattern is fixed by its column and the
+// phase, so a thread works out its byte codes once.  With one phase for
+// all (one station, the sharded chain, a batch in step) it is a
+// compile-time constant, as in the one-station form, and the codes fold
+// into the decode's instructions; with a phase a station, each block reads
+// its own at run time (one kernel, one launch), at some cost back to back
+// (chip_variants.py's fm_front/runtime_phase; a switch into four constant-
+// phase bodies instead, fm_front/four_bodies, costs a cold launch more: its
+// code is four times the size).
 
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -81,17 +98,33 @@ constexpr int kTileOutputs = 120;
 
 struct FrontArgs {
   const uint8_t* iq;
-  long long n;          // complex samples
-  long long M;          // outputs, n / d
+  long long iq_stride;  // bytes from one station's row to the next
+  long long n;          // complex samples a station
+  long long M;          // outputs a station, n / d
   const float* carry_in;
+  long long carry_in_stride;   // floats from one station's carry to the next
   const float* taps;
   float* z;
+  long long z_stride;          // floats from one station's z row to the next
   float* carry_out;
+  long long carry_out_stride;  // floats
+  const int* phases;    // per-station fs/4 phases on the device, or null
+  int phase;            // every station's phase when phases is null
   int L, d, delta, ks;
   int span;             // samples a tile stages (a multiple of 8)
   int copy_bytes;       // a ring slot: a tile's raw bytes, a multiple of 128
-  int aligned16;        // iq is 16-byte aligned
-  int z8;               // z is 8-byte aligned
+};
+
+// One station's part of a launch (blockIdx.y): its bytes, carries and z
+// row, and their alignment, which the row strides may change from row to
+// row.
+struct Row {
+  const uint8_t* iq;
+  const float* carry_in;
+  float* z;
+  float* carry_out;
+  bool aligned16;  // iq is 16-byte aligned
+  bool z8;         // z is 8-byte aligned
 };
 
 // atan(t) ~= t * P(t^2) on [0, 1], 6-term equioscillating fit (9.9e-6 rad).
@@ -261,12 +294,13 @@ __host__ __device__ constexpr int round16(int bytes) {
   return (bytes + 15) / 16 * 16;
 }
 
-// Shared memory: per warp, the raw-byte ring (kRing slots of a tile's
-// bytes) and its kRing mbarriers; per block, the band's fragments (generic
-// form), the carry's f32 history and the taps.
-template <int PHASE, bool FAST>
-__global__ void __launch_bounds__(256)
-fm_front_kernel(const __grid_constant__ FrontArgs a) {
+// One station's work in a block.  Shared memory: per warp, the raw-byte
+// ring (kRing slots of a tile's bytes) and its kRing mbarriers; per block,
+// the band's fragments (generic form), the carry's f32 history and the
+// taps.
+template <bool FAST>
+__device__ __forceinline__ void front(const FrontArgs& a, const Row& row,
+                                      int phase) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int r = lane >> 2, c = lane & 3;
@@ -301,7 +335,7 @@ fm_front_kernel(const __grid_constant__ FrontArgs a) {
   const long long tile_samples = (long long)kTileOutputs * a.d;
   const long long inner_lo =
       (a.L - 1 + a.delta + 8LL * a.d + tile_samples - 1) / tile_samples;
-  const long long inner_hi = a.aligned16
+  const long long inner_hi = row.aligned16
       ? (a.n - a.span + a.L - 1 + a.delta + 8LL * a.d) / tile_samples + 1
       : 0;
   auto issue = [&](long long s, int slot) {
@@ -311,14 +345,14 @@ fm_front_kernel(const __grid_constant__ FrontArgs a) {
     if (s >= inner_lo && s < inner_hi) {
       if (lane == 0) {
         mbar_expect_bytes(&bars[slot], 2 * a.span);
-        bulk_copy(dst, a.iq + 2 * k0, 2 * a.span, &bars[slot]);
+        bulk_copy(dst, row.iq + 2 * k0, 2 * a.span, &bars[slot]);
       }
       return;
     }
     const long long lo = k0 > 0 ? k0 : 0;
     const long long hi = k0 + a.span < a.n ? k0 + a.span : a.n;
     long long bulk_lo = lo, bulk_hi = lo;  // samples, multiples of 8
-    if (a.aligned16 && hi > lo) {
+    if (row.aligned16 && hi > lo) {
       bulk_lo = (lo + 7) & ~7LL;
       bulk_hi = hi & ~7LL;
       if (bulk_hi < bulk_lo) bulk_hi = bulk_lo;
@@ -328,7 +362,7 @@ fm_front_kernel(const __grid_constant__ FrontArgs a) {
         const long long kk = k0 + k;
         if (kk >= bulk_lo && kk < bulk_hi) continue;
         const uint16_t v = (kk >= 0 && kk < a.n)
-            ? (uint16_t)(a.iq[2 * kk] | (a.iq[2 * kk + 1] << 8)) : (uint16_t)0;
+            ? (uint16_t)(row.iq[2 * kk] | (row.iq[2 * kk + 1] << 8)) : (uint16_t)0;
         *reinterpret_cast<uint16_t*>(dst + 2 * k) = v;
       }
       __syncwarp();
@@ -339,7 +373,7 @@ fm_front_kernel(const __grid_constant__ FrontArgs a) {
         mbar_arrive(&bars[slot]);
       } else {
         mbar_expect_bytes(&bars[slot], bytes);
-        bulk_copy(dst + 2 * (bulk_lo - k0), a.iq + 2 * bulk_lo, bytes,
+        bulk_copy(dst + 2 * (bulk_lo - k0), row.iq + 2 * bulk_lo, bytes,
                   &bars[slot]);
       }
     }
@@ -347,30 +381,30 @@ fm_front_kernel(const __grid_constant__ FrontArgs a) {
   // the taps and the carry's f32 history (tile 0 adds it where its windows
   // reach k < 0), staged once, their loads ahead of the first copies
   for (int l = tid; l < a.L; l += blockDim.x) staps[l] = a.taps[l];
-  for (int l = tid; l < 2 * kLanes; l += blockDim.x) hist[l] = a.carry_in[l];
+  for (int l = tid; l < 2 * kLanes; l += blockDim.x) hist[l] = row.carry_in[l];
   if (blockIdx.x == 0) {  // the carry's rows 0/1 and rows 2/3 left of M
     for (int l = tid; l < kLanes; l += blockDim.x) {
       // rows 2/3 lanes left of the call's first sample (calls under 128
       // outputs): the old row, shifted by M
       if (l < kLanes - a.M) {
-        a.carry_out[2 * kLanes + l] = a.carry_in[2 * kLanes + l + a.M];
-        a.carry_out[3 * kLanes + l] = a.carry_in[3 * kLanes + l + a.M];
+        row.carry_out[2 * kLanes + l] = row.carry_in[2 * kLanes + l + a.M];
+        row.carry_out[3 * kLanes + l] = row.carry_in[3 * kLanes + l + a.M];
       }
       // rows 0/1: xext[n + l] of xext = [history (L-1) | block (n)]
-      float re = a.carry_in[0 * kLanes + l], im = a.carry_in[1 * kLanes + l];
+      float re = row.carry_in[0 * kLanes + l], im = row.carry_in[1 * kLanes + l];
       if (l < a.L - 1) {
         const long long pos = a.n + l;
         if (pos < a.L - 1) {
-          re = a.carry_in[0 * kLanes + pos];
-          im = a.carry_in[1 * kLanes + pos];
+          re = row.carry_in[0 * kLanes + pos];
+          im = row.carry_in[1 * kLanes + pos];
         } else {
           const long long k = pos - (a.L - 1);
-          unpack_rotated(a.iq[2 * k] | (a.iq[2 * k + 1] << 8),
-                         (int)((k + PHASE) & 3), &re, &im);
+          unpack_rotated(row.iq[2 * k] | (row.iq[2 * k + 1] << 8),
+                         (int)((k + phase) & 3), &re, &im);
         }
       }
-      a.carry_out[0 * kLanes + l] = re;
-      a.carry_out[1 * kLanes + l] = im;
+      row.carry_out[0 * kLanes + l] = re;
+      row.carry_out[1 * kLanes + l] = im;
     }
   }
   if (lane == 0) {
@@ -403,15 +437,15 @@ fm_front_kernel(const __grid_constant__ FrontArgs a) {
 
   // this lane's fragments: rows r and r + 8, samples 2c, 2c+1 (+8) of each
   // k-step, rotated by (2c + phase) & 3 and the next
-  const PairCode code_re = pair_code((2 * c + PHASE) & 3, (2 * c + 1 + PHASE) & 3, false);
-  const PairCode code_im = pair_code((2 * c + PHASE) & 3, (2 * c + 1 + PHASE) & 3, true);
+  const PairCode code_re = pair_code((2 * c + phase) & 3, (2 * c + 1 + phase) & 3, false);
+  const PairCode code_im = pair_code((2 * c + phase) & 3, (2 * c + 1 + phase) & 3, true);
   const int row_stride = 8 * a.d;
   const int w_row = (row_stride * r + 2 * c) / 2;           // 32-bit words
   const int w_r8 = 4 * row_stride;                          // row r + 8
   const unsigned full = 0xffffffffu;
 
   // tiles before plain_end write z with no bounds and no carry rows
-  const long long plain_end = a.z8 && a.M >= kLanes
+  const long long plain_end = row.z8 && a.M >= kLanes
       ? (a.M - kLanes) / kTileOutputs : 0;
   int it = 0;
   for (long long s = first; s < tiles; s += step, ++it) {
@@ -472,7 +506,7 @@ fm_front_kernel(const __grid_constant__ FrontArgs a) {
         for (long long k = start < -(a.L - 1) ? 0 : start; k < 0; ++k) {
           const float w = staps[k - start];
           float g_re, g_im;
-          rotate((int)((k + PHASE) & 3), -255.0f, -255.0f, &g_re, &g_im);
+          rotate((int)((k + phase) & 3), -255.0f, -255.0f, &g_re, &g_im);
           acc_re[t] = fmaf(w, hist[0 * kLanes + (a.L - 1) + k] - g_re, acc_re[t]);
           acc_im[t] = fmaf(w, hist[1 * kLanes + (a.L - 1) + k] - g_im, acc_im[t]);
         }
@@ -496,8 +530,8 @@ fm_front_kernel(const __grid_constant__ FrontArgs a) {
       b_im[2] = l31_im;
     }
     if (s == 0 && lane == 4) {  // output 0's: the carried sample
-      b_re[0] = a.carry_in[2 * kLanes + kLanes - 1];
-      b_im[0] = a.carry_in[3 * kLanes + kLanes - 1];
+      b_re[0] = row.carry_in[2 * kLanes + kLanes - 1];
+      b_im[0] = row.carry_in[3 * kLanes + kLanes - 1];
     }
     float zz[4];
 #pragma unroll
@@ -508,7 +542,7 @@ fm_front_kernel(const __grid_constant__ FrontArgs a) {
     }
     __syncwarp();  // the slot is refilled next
     if (s < plain_end) {  // whole tile, no carry rows, 8-byte aligned z
-      float* zt = a.z + m_lo;
+      float* zt = row.z + m_lo;
       if (r > 0) *reinterpret_cast<float2*>(zt) = make_float2(zz[0], zz[1]);
       *reinterpret_cast<float2*>(zt + 64) = make_float2(zz[2], zz[3]);
       continue;
@@ -517,19 +551,37 @@ fm_front_kernel(const __grid_constant__ FrontArgs a) {
     for (int t = 0; t < 4; ++t) {
       const long long m = mm[t];
       if (m >= 0 && m < a.M && (r > 0 || t >= 2)) {
-        a.z[m] = zz[t];
+        row.z[m] = zz[t];
         const long long l = m - (a.M - kLanes);  // last 128 -> rows 2/3
         if (l >= 0) {
-          a.carry_out[2 * kLanes + l] = acc_re[t];
-          a.carry_out[3 * kLanes + l] = acc_im[t];
+          row.carry_out[2 * kLanes + l] = acc_re[t];
+          row.carry_out[3 * kLanes + l] = acc_im[t];
         }
       }
     }
   }
 }
 
+// The kernel: blockIdx.y is the station.  PHASE >= 0 is every station's
+// fs/4 phase; PHASE < 0 reads each station's from `phases` (or `phase`).
 template <int PHASE, bool FAST>
-int launch(const FrontArgs& a, int warps, size_t smem, cudaStream_t stream) {
+__global__ void __launch_bounds__(256)
+fm_front_kernel(const __grid_constant__ FrontArgs a) {
+  const long long s = blockIdx.y;
+  Row row;
+  row.iq = a.iq + s * a.iq_stride;
+  row.carry_in = a.carry_in + s * a.carry_in_stride;
+  row.z = a.z + s * a.z_stride;
+  row.carry_out = a.carry_out + s * a.carry_out_stride;
+  row.aligned16 = ((uintptr_t)row.iq % 16) == 0;
+  row.z8 = ((uintptr_t)row.z % 8) == 0;
+  front<FAST>(a, row, PHASE >= 0 ? PHASE
+                          : a.phases != nullptr ? (a.phases[s] & 3) : a.phase);
+}
+
+template <int PHASE, bool FAST>
+int launch(const FrontArgs& a, int stations, int warps, size_t smem,
+           cudaStream_t stream) {
   auto kernel = fm_front_kernel<PHASE, FAST>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -546,19 +598,27 @@ int launch(const FrontArgs& a, int warps, size_t smem, cudaStream_t stream) {
   }
   const long long tiles = (a.M + kTileOutputs - 1) / kTileOutputs;
   long long grid = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  // one wave over the whole launch: the stations share it
+  grid = (grid + stations - 1) / stations;
   if (grid > (tiles + warps - 1) / warps) grid = (tiles + warps - 1) / warps;
-  kernel<<<(unsigned)grid, 32 * warps, smem, stream>>>(a);
+  kernel<<<dim3((unsigned)grid, (unsigned)stations), 32 * warps, smem,
+           stream>>>(a);
   return (int)cudaGetLastError();
 }
 
+// One phase for all stations: the kernel with it a compile-time constant;
+// a phase a station: the kernel that reads each at run time.
 template <bool FAST>
-int launch_phase(const FrontArgs& a, int phase, int warps, size_t smem,
+int launch_phase(const FrontArgs& a, int stations, int warps, size_t smem,
                  cudaStream_t stream) {
-  switch (phase) {
-    case 0: return launch<0, FAST>(a, warps, smem, stream);
-    case 1: return launch<1, FAST>(a, warps, smem, stream);
-    case 2: return launch<2, FAST>(a, warps, smem, stream);
-    default: return launch<3, FAST>(a, warps, smem, stream);
+  if (a.phases != nullptr) {
+    return launch<-1, FAST>(a, stations, warps, smem, stream);
+  }
+  switch (a.phase) {
+    case 0: return launch<0, FAST>(a, stations, warps, smem, stream);
+    case 1: return launch<1, FAST>(a, stations, warps, smem, stream);
+    case 2: return launch<2, FAST>(a, stations, warps, smem, stream);
+    default: return launch<3, FAST>(a, stations, warps, smem, stream);
   }
 }
 
@@ -566,31 +626,43 @@ int launch_phase(const FrontArgs& a, int phase, int warps, size_t smem,
 
 extern "C" {
 
-// Launches K1 on `stream`.  iq_u8: 2n bytes (2-byte aligned); carry_in and
-// carry_out: distinct (4, 128) f32; taps: L f32 (each a sum of two bf16, as
-// make_kernel_params gives them, within 2^24 of the largest); z: n/decim
-// f32.  Returns 0 or the CUDA error of the launch.
-int tsdr_fm_front(const void* iq_u8, long long n, int phase,
-                  const float* carry_in, const float* taps, int num_taps,
-                  int decim, float* z, float* carry_out, void* stream) {
+// Launches K1 on `stream` over `stations` rows: station s reads 2n bytes
+// at iq_u8 + s*iq_stride (2-byte aligned), rotates them from fs/4 phase
+// phases[s] (an int32 device array) or, with phases null, from `phase`,
+// and reads the (4, 128) f32 carry at carry_in + s*carry_in_stride; it
+// writes n/decim f32 at z + s*z_stride and its new carry at carry_out +
+// s*carry_out_stride (no carry_out row may overlap a carry_in row).
+// taps: L f32 (each a sum of two bf16, as make_kernel_params gives them,
+// within 2^24 of the largest).  Returns 0 or the CUDA error of the launch.
+int tsdr_fm_front_batch(const void* iq_u8, long long iq_stride, int stations,
+                        long long n, const int* phases, int phase,
+                        const float* carry_in, long long carry_in_stride,
+                        const float* taps, int num_taps, int decim, float* z,
+                        long long z_stride, float* carry_out,
+                        long long carry_out_stride, void* stream) {
   if (n <= 0 || decim <= 0 || n % decim != 0 || num_taps < 1 ||
-      num_taps - 1 > kLanes || phase < 0 || phase > 3) {
+      num_taps - 1 > kLanes || phase < 0 || phase > 3 || stations < 1 ||
+      stations > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   FrontArgs a;
   a.iq = (const uint8_t*)iq_u8;
+  a.iq_stride = iq_stride;
   a.n = n;
   a.M = n / decim;
   a.carry_in = carry_in;
+  a.carry_in_stride = carry_in_stride;
   a.taps = taps;
   a.z = z;
+  a.z_stride = z_stride;
   a.carry_out = carry_out;
+  a.carry_out_stride = carry_out_stride;
+  a.phases = phases;
+  a.phase = phase;
   a.L = num_taps;
   a.d = decim;
   a.delta = ((1 - num_taps) % 8 + 8) % 8;
   a.ks = (a.delta + 7 * decim + num_taps + 15) / 16;
-  a.aligned16 = ((uintptr_t)iq_u8 % 16) == 0;
-  a.z8 = ((uintptr_t)z % 8) == 0;
   const bool fast = a.ks <= kFastKS;
   if (fast) a.ks = kFastKS;
   // a warp tile: 16 rows of 8 outputs and the band's reach
@@ -606,10 +678,23 @@ int tsdr_fm_front(const void* iq_u8, long long n, int phase,
     const size_t smem = warps * warp_bytes + round16(8 * kRing * warps) +
                         block_bytes;
     if (smem > kBudget) continue;
-    return fast ? launch_phase<true>(a, phase, warps, smem, (cudaStream_t)stream)
-                : launch_phase<false>(a, phase, warps, smem, (cudaStream_t)stream);
+    return fast ? launch_phase<true>(a, stations, warps, smem,
+                                     (cudaStream_t)stream)
+                : launch_phase<false>(a, stations, warps, smem,
+                                      (cudaStream_t)stream);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// Launches K1 on one station: the batch entry with one row.  iq_u8: 2n
+// bytes (2-byte aligned); carry_in and carry_out: distinct (4, 128) f32;
+// z: n/decim f32.
+int tsdr_fm_front(const void* iq_u8, long long n, int phase,
+                  const float* carry_in, const float* taps, int num_taps,
+                  int decim, float* z, float* carry_out, void* stream) {
+  return tsdr_fm_front_batch(iq_u8, 0, 1, n, nullptr, phase, carry_in, 0,
+                             taps, num_taps, decim, z, 0, carry_out, 0,
+                             stream);
 }
 
 const char* tsdr_error_string(int status) {

@@ -40,6 +40,15 @@
 // what bounds it is the memory system at this size (one wave, ~3 us of
 // bytes) and a launch's fixed cost, not its arithmetic.  Fusing K2 into K1's epilogue (z never leaving the
 // SM) removes its launch and its reads.
+//
+// Stations.  One launch runs a batch of stations (JAX vmaps the resampler
+// over them): blockIdx.y is the station, whose z, history, audio and new
+// history rows sit at strides of their own (the sharded chain's histories
+// are slices of its halo records); a station's blocks split one wave of
+// the card with the others, and block x = 0 of each writes that station's
+// history.  One station runs a form of the kernel that takes its rows
+// where the arguments put them: the per-station offsets cost a lone
+// launch of one station ~20% (chip_variants.py's fm_resample/batch_form).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -52,17 +61,30 @@ constexpr int kWindow = 128;        // samples a frame reads, rounded to 4
 
 struct ResampleArgs {
   const float* z;
-  long long n_z;
+  long long z_stride;         // floats from one station's z row to the next
+  long long n_z;              // z samples a station
   const float* hist;
+  long long hist_stride;
   const float* h_poly;
   float* audio;
+  long long audio_stride;
   float* hist_out;
+  long long hist_out_stride;
   long long frames;
   int up, down, T;
   int tile;        // frames a tile (fast form: a quarter of the threads)
   int span;        // floats staged a tile, a multiple of 4
   int bank;        // floats of the bank in shared memory
-  int out16;       // audio is 16-byte aligned
+};
+
+// One station's part of a launch (blockIdx.y): its rows, at strides of
+// their own, and the audio row's alignment.
+struct Row {
+  const float* z;
+  const float* hist;
+  float* audio;
+  float* hist_out;
+  bool out16;      // audio is 16-byte aligned
 };
 
 __host__ __device__ constexpr int o_of(int s) { return (s * kDown) / kUp; }
@@ -74,34 +96,37 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
                "l"(src));
 }
 
-__device__ __forceinline__ float xe_at(const ResampleArgs& a, long long e) {
+__device__ __forceinline__ float xe_at(const ResampleArgs& a, const Row& row,
+                                      long long e) {
   if (e < 0) return 0.0f;
-  if (e < a.T - 1) return a.hist[e];
+  if (e < a.T - 1) return row.hist[e];
   const long long k = e - (a.T - 1);
-  return k < a.n_z ? a.z[k] : 0.0f;
+  return k < a.n_z ? row.z[k] : 0.0f;
 }
 
 // Element offset of tile `t`'s first staged float: its xe index is
 // r0*down - shift, chosen so that z's global address is 16-byte aligned
 // at every multiple of 4 in shared memory.
-__device__ __forceinline__ int tile_shift(const ResampleArgs& a, long long t) {
+__device__ __forceinline__ int tile_shift(const ResampleArgs& a, const Row& row,
+                                          long long t) {
   const long long e0 = t * a.tile * a.down;
-  const long long word = ((long long)((uintptr_t)a.z >> 2)) + e0 - (a.T - 1);
+  const long long word = ((long long)((uintptr_t)row.z >> 2)) + e0 - (a.T - 1);
   return (int)(word & 3);
 }
 
 // Stage tile t's span into buf: 16-byte cp.async where the four floats
 // are all of z, else one by one (the history, the stream's end).
-__device__ void issue(const ResampleArgs& a, long long t, float* buf) {
-  const int shift = tile_shift(a, t);
+__device__ void issue(const ResampleArgs& a, const Row& row, long long t,
+                      float* buf) {
+  const int shift = tile_shift(a, row, t);
   const long long e0 = t * a.tile * a.down - shift;
   for (int j = 4 * threadIdx.x; j < a.span; j += 4 * blockDim.x) {
     const long long k = e0 + j - (a.T - 1);  // z index of buf[j]
     if (k >= 0 && k + 4 <= a.n_z) {
-      cp_async16(buf + j, a.z + k);
+      cp_async16(buf + j, row.z + k);
     } else {
 #pragma unroll
-      for (int q = 0; q < 4; ++q) buf[j + q] = xe_at(a, e0 + j + q);
+      for (int q = 0; q < 4; ++q) buf[j + q] = xe_at(a, row, e0 + j + q);
     }
   }
 }
@@ -136,17 +161,25 @@ __device__ __forceinline__ float4 frame_quad(const float* x,
 }
 
 // Fast form: 4 threads a frame (warp w computes outputs 4(w%4)..+3 of 32
-// frames); generic form: a thread a frame.
-template <bool FAST>
+// frames); generic form: a thread a frame.  BATCH: blockIdx.y is the
+// station, its rows at their strides; else one station's rows.
+template <bool FAST, bool BATCH>
 __global__ void __launch_bounds__(512, 2)
 fm_resample_kernel(const __grid_constant__ ResampleArgs a) {
   extern __shared__ __align__(16) float smem[];
   float* bank = smem;
   float* bufs = smem + a.bank;  // two tiles of a.span floats
   const int tid = threadIdx.x;
+  const long long st = BATCH ? blockIdx.y : 0;
+  Row row;
+  row.z = a.z + st * a.z_stride;
+  row.hist = a.hist + st * a.hist_stride;
+  row.audio = a.audio + st * a.audio_stride;
+  row.hist_out = a.hist_out + st * a.hist_out_stride;
+  row.out16 = ((uintptr_t)row.audio % 16) == 0;
   const long long tiles = (a.frames + a.tile - 1) / a.tile;
   long long t = blockIdx.x;
-  if (t < tiles) issue(a, t, bufs);
+  if (t < tiles) issue(a, row, t, bufs);
   asm volatile("cp.async.commit_group;\n" ::);
 
   // the bank, once: fast form rows g_s[u] = h[p_s][47 - u] at column
@@ -164,7 +197,7 @@ fm_resample_kernel(const __grid_constant__ ResampleArgs a) {
   if (blockIdx.x == 0) {
     for (int i = tid; i < a.T - 1; i += blockDim.x) {
       const long long e = a.n_z + i;
-      a.hist_out[i] = e < a.T - 1 ? a.hist[e] : a.z[e - (a.T - 1)];
+      row.hist_out[i] = e < a.T - 1 ? row.hist[e] : row.z[e - (a.T - 1)];
     }
   }
 
@@ -172,14 +205,16 @@ fm_resample_kernel(const __grid_constant__ ResampleArgs a) {
   const int quad = (tid >> 5) & 3;
   int cur = 0;
   for (; t < tiles; t += gridDim.x, cur ^= 1) {
-    if (t + gridDim.x < tiles) issue(a, t + gridDim.x, bufs + (cur ^ 1) * a.span);
+    if (t + gridDim.x < tiles) {
+      issue(a, row, t + gridDim.x, bufs + (cur ^ 1) * a.span);
+    }
     asm volatile("cp.async.commit_group;\n" ::);
     asm volatile("cp.async.wait_group 1;\n" ::);
     __syncthreads();
 
     const long long r = t * a.tile + f;
     if (f < a.tile && r < a.frames) {
-      const float* x = bufs + cur * a.span + tile_shift(a, t) + f * a.down;
+      const float* x = bufs + cur * a.span + tile_shift(a, row, t) + f * a.down;
       if constexpr (FAST) {
         float4 v;
         switch (quad) {
@@ -188,8 +223,8 @@ fm_resample_kernel(const __grid_constant__ ResampleArgs a) {
           case 2: v = frame_quad<2>(x, bank); break;
           default: v = frame_quad<3>(x, bank); break;
         }
-        float* out = a.audio + r * kUp + 4 * quad;
-        if (a.out16) {
+        float* out = row.audio + r * kUp + 4 * quad;
+        if (row.out16) {
           *reinterpret_cast<float4*>(out) = v;
         } else {
           out[0] = v.x;
@@ -205,7 +240,7 @@ fm_resample_kernel(const __grid_constant__ ResampleArgs a) {
           const float* xs = x + (a.T - 1) + o;
           float acc = 0.0f;
           for (int k = 0; k < a.T; ++k) acc = fmaf(h[k], xs[-k], acc);
-          a.audio[r * a.up + s] = acc;
+          row.audio[r * a.up + s] = acc;
         }
       }
     }
@@ -214,9 +249,10 @@ fm_resample_kernel(const __grid_constant__ ResampleArgs a) {
   asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
-template <bool FAST>
-int launch(const ResampleArgs& a, size_t smem, cudaStream_t stream) {
-  auto kernel = fm_resample_kernel<FAST>;
+template <bool FAST, bool BATCH>
+int launch(const ResampleArgs& a, int stations, size_t smem,
+           cudaStream_t stream) {
+  auto kernel = fm_resample_kernel<FAST, BATCH>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -233,8 +269,10 @@ int launch(const ResampleArgs& a, size_t smem, cudaStream_t stream) {
   }
   const long long tiles = (a.frames + a.tile - 1) / a.tile;
   long long grid = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  // one wave over the whole launch: the stations share it
+  grid = (grid + stations - 1) / stations;
   if (grid > tiles) grid = tiles;
-  kernel<<<(unsigned)grid, threads, smem, stream>>>(a);
+  kernel<<<dim3((unsigned)grid, (unsigned)stations), threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -242,27 +280,36 @@ int launch(const ResampleArgs& a, size_t smem, cudaStream_t stream) {
 
 extern "C" {
 
-// Launches K2 on `stream`.  z: n_z f32 (n_z % down == 0, 4-byte aligned);
-// hist and hist_out: distinct T-1 f32; h_poly: (up, T) f32; audio:
-// n_z/down*up f32.  Returns 0 or the CUDA error of the launch.
-int tsdr_fm_resample(const float* z, long long n_z, const float* hist,
-                     const float* h_poly, int up, int down, int T,
-                     float* audio, float* hist_out, void* stream) {
-  if (n_z <= 0 || up <= 0 || down <= 0 || T < 1 || n_z % down != 0) {
+// Launches K2 on `stream` over `stations` rows: station s reads n_z f32
+// (n_z % down == 0) at z + s*z_stride and T-1 at hist + s*hist_stride, and
+// writes n_z/down*up f32 at audio + s*audio_stride and T-1 at hist_out +
+// s*hist_out_stride (hist_out rows distinct from the hist rows); h_poly:
+// (up, T) f32.  Returns 0 or the CUDA error of the launch.
+int tsdr_fm_resample_batch(const float* z, long long z_stride, int stations,
+                           long long n_z, const float* hist,
+                           long long hist_stride, const float* h_poly, int up,
+                           int down, int T, float* audio,
+                           long long audio_stride, float* hist_out,
+                           long long hist_out_stride, void* stream) {
+  if (n_z <= 0 || up <= 0 || down <= 0 || T < 1 || n_z % down != 0 ||
+      stations < 1 || stations > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   ResampleArgs a;
   a.z = z;
+  a.z_stride = z_stride;
   a.n_z = n_z;
   a.hist = hist;
+  a.hist_stride = hist_stride;
   a.h_poly = h_poly;
   a.audio = audio;
+  a.audio_stride = audio_stride;
   a.hist_out = hist_out;
+  a.hist_out_stride = hist_out_stride;
   a.frames = n_z / down;
   a.up = up;
   a.down = down;
   a.T = T;
-  a.out16 = ((uintptr_t)audio % 16) == 0;
   const bool fast = up == kUp && down == kDown && T == kTaps;
   a.bank = fast ? kUp * kRow : (up * T + 3) / 4 * 4;
   const size_t kBudget = 200 * 1024;
@@ -273,10 +320,25 @@ int tsdr_fm_resample(const float* z, long long n_z, const float* hist,
     if (smem > kBudget) continue;
     a.tile = tile;
     a.span = (int)span;
-    return fast ? launch<true>(a, smem, (cudaStream_t)stream)
-                : launch<false>(a, smem, (cudaStream_t)stream);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (stations > 1) {
+      return fast ? launch<true, true>(a, stations, smem, s)
+                  : launch<false, true>(a, stations, smem, s);
+    }
+    return fast ? launch<true, false>(a, stations, smem, s)
+                : launch<false, false>(a, stations, smem, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// Launches K2 on one station: the batch entry with one row.  z: n_z f32
+// (n_z % down == 0, 4-byte aligned); hist and hist_out: distinct T-1 f32;
+// audio: n_z/down*up f32.
+int tsdr_fm_resample(const float* z, long long n_z, const float* hist,
+                     const float* h_poly, int up, int down, int T,
+                     float* audio, float* hist_out, void* stream) {
+  return tsdr_fm_resample_batch(z, 0, 1, n_z, hist, 0, h_poly, up, down, T,
+                                audio, 0, hist_out, 0, stream);
 }
 
 }  // extern "C"

@@ -10,7 +10,8 @@ library.  The library is bound with ``ctypes``: pointers and the stream go
 as ``c_void_p``, and every launch returns its CUDA status, which
 :func:`check` turns into an exception.  The wrappers decide with
 :func:`on_cuda` whether to launch and validate each tensor with
-:func:`check_tensor` before its pointer goes to C.
+:func:`check_tensor` (or, for a station batch whose rows sit at a stride,
+:func:`check_rows`) before its pointer goes to C.
 
 Nothing here runs at import time: the CPU tests import the port without a
 compiler or a card.
@@ -121,8 +122,14 @@ def bind(path: str) -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.tsdr_fm_front.argtypes = [p, ll, i, p, p, i, i, p, p, p]
     lib.tsdr_fm_front.restype = i
+    lib.tsdr_fm_front_batch.argtypes = [p, ll, i, ll, p, i, p, ll, p, i, i,
+                                        p, ll, p, ll, p]
+    lib.tsdr_fm_front_batch.restype = i
     lib.tsdr_fm_resample.argtypes = [p, ll, p, p, i, i, i, p, p, p]
     lib.tsdr_fm_resample.restype = i
+    lib.tsdr_fm_resample_batch.argtypes = [p, ll, i, ll, p, ll, p, i, i, i,
+                                           p, ll, p, ll, p]
+    lib.tsdr_fm_resample_batch.restype = i
     lib.tsdr_pfb_channelize.argtypes = [p, ll, i, i, i, i, p, p, p, p, p, p]
     lib.tsdr_pfb_channelize.restype = i
     lib.tsdr_halo_pull.argtypes = [i, p, p, ll, p, p, p, i, p]
@@ -177,3 +184,21 @@ def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, device,
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_rows(t: torch.Tensor, name: str, dtype: torch.dtype, device,
+               shape: tuple) -> int:
+    """Raise unless ``t`` has this device, dtype and shape and each of its
+    rows (``t[i]``) is contiguous: what a kernel takes through a base
+    pointer and a row stride.  Returns the row stride in elements."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if shape[0] and not t[0].is_contiguous():
+        raise ValueError(f"{name}'s rows must be contiguous")
+    if shape[0] > 1 and t.stride(0) < t[0].numel():
+        raise ValueError(f"{name}'s rows overlap (row stride {t.stride(0)})")
+    return t.stride(0)

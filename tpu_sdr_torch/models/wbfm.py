@@ -1,14 +1,23 @@
 """WBFM float chain in plain PyTorch — the counterpart of
-``tpu_sdr/models/wbfm.py`` in its ``fir`` mode on the aligned resampler
-path:
+``tpu_sdr/models/wbfm.py``, every mode:
 
-    u8 I/Q -> f32 -> fs/4 rotate -> 72-tap FIR, ÷6 (banded matmul)
-           -> quadrature discriminator (exact atan2)
-           -> 16/85 frame-matmul polyphase resampler -> audio
+    u8 I/Q -> f32 -> fs/4 rotate -> decimate ÷6 -> quadrature discriminator
+           -> (de-emphasis) -> 16/85 resampler -> audio
 
-All arithmetic is float32.  It is the port's oracle for the fused kernels
-and what ``simple_fm --mode fir`` runs.  The boxcar mode, de-emphasis and
-the multiplex tap are not ported yet and raise.
+``filter_mode="fir"``: the 72-tap FIR (banded matmul), the exact atan2 and
+the 48-tap polyphase resampler; ``"boxcar"``: the float twins of the
+reference's boxcar filters and fast atan, which track the exact integer
+chain to >= 60 dB.  A block of whole resampler frames (``len %
+(2*decim*down) == 0``) runs the frame matmul (polyphase or boxcar window,
+the aligned path); any other multiple of ``2*decim`` bytes the unaligned
+resamplers, whose carries are not interchangeable with the aligned path's.
+``deemphasis_tau`` adds the single-pole de-emphasis, ``emit_mpx`` returns
+the 170 kHz multiplex (the discriminator output before de-emphasis).
+
+All arithmetic is float32 (``mxu_precision`` is accepted and ignored).  It
+is the port's oracle for the fused kernels and what ``simple_fm --mode
+fir|boxcar`` runs.  Every function takes an optional leading station axis
+(``models.wbfm_batched``).
 """
 
 from __future__ import annotations
@@ -25,75 +34,112 @@ from tpu_sdr_torch.utils.design import WbfmConfig
 
 
 class WbfmState(NamedTuple):
+    """The six carries of the JAX ``WbfmState``."""
+
     rot: int  # fs/4 phase of the next block's first sample
     fir: F.FirState
     quad: F.QuadState
-    resamp: F.AlignedResampleState
+    resamp: F.ResampleState
+    box_resamp: F.BoxcarResampleState
+    deemph: F.DeemphState
 
 
 class WbfmParams(nn.Module):
-    """The chain's filter banks as buffers: the decimator's banded matrix
-    and the resampler's frame matrix."""
+    """The chain's filter banks as buffers: the decimator's banded matrix,
+    the resampler's polyphase bank and frame matrix, and the boxcar frame
+    matrix."""
 
     def __init__(self, config: WbfmConfig, device: torch.device):
         super().__init__()
+        h_poly = design.resampler_poly(config)
         W = design.make_banded_decim_matrix(design.decimator_taps(config),
                                             config.decim)
-        V = design.make_aligned_poly_matrix(design.resampler_poly(config),
-                                            config.resample_up,
+        V = design.make_aligned_poly_matrix(h_poly, config.resample_up,
                                             config.resample_down)
-        self.register_buffer("decim_W", torch.from_numpy(W).to(device))
-        self.register_buffer("resamp_V", torch.from_numpy(V).to(device))
+        box_V, _, _ = design.make_aligned_boxcar_matrix(config.rate_out,
+                                                        config.rate_resample)
+        for name, x in (("decim_W", W), ("resamp_poly", h_poly),
+                        ("resamp_V", V), ("box_V", box_V)):
+            self.register_buffer(name, torch.from_numpy(x).to(device))
 
 
 def init_state(config: WbfmConfig, device: torch.device) -> WbfmState:
     T = config.resample_taps_per_phase
     return WbfmState(0, F.fir_init(config.num_taps, device),
-                     F.quad_init(device), F.aligned_resample_init(T, device))
-
-
-def _check_ported(config: WbfmConfig) -> None:
-    if config.filter_mode != "fir":
-        raise NotImplementedError(
-            f"filter_mode={config.filter_mode!r} is not ported yet (fir only)")
-    if config.deemphasis_tau > 0 or config.emit_mpx:
-        raise NotImplementedError(
-            "de-emphasis and the multiplex tap are not ported yet")
+                     F.quad_init(device), F.resample_init(T, device),
+                     F.boxcar_resample_init(device), F.deemph_init(device))
 
 
 def demodulate_block(buf: torch.Tensor, state: WbfmState, params: WbfmParams,
-                     config: WbfmConfig) -> tuple[torch.Tensor, WbfmState]:
-    """One u8 I/Q block -> (audio f32, new_state).  The byte length must be
-    a multiple of ``2*decim*resample_down`` (the aligned resampler path)."""
-    _check_ported(config)
-    quantum = 2 * config.decim * config.resample_down
-    if buf.numel() % quantum:
-        raise ValueError(f"block of {buf.numel()} bytes is not a multiple of "
-                         f"{quantum} (the aligned-resampler quantum)")
+                     config: WbfmConfig):
+    """One u8 I/Q block (its byte length a positive multiple of
+    ``2*decim``; a leading station axis with a stacked state runs a batch)
+    -> (audio f32, new_state), or (audio, mpx, new_state) with
+    ``config.emit_mpx``."""
+    nbytes = buf.shape[-1]
+    if nbytes == 0 or nbytes % (2 * config.decim):
+        raise ValueError(f"block of {nbytes} bytes is not a positive "
+                         f"multiple of {2 * config.decim}")
+    boxcar = config.filter_mode == "boxcar"
+    if not boxcar and config.filter_mode != "fir":
+        raise ValueError(f"filter_mode {config.filter_mode!r} is not fir or "
+                         "boxcar")
     re, im = F.u8_to_f32(buf)
     re, im, rot = F.rotate_fs4(re, im, state.rot)
-    re, im, fir = F.fir_decimate_mxu(re, im, params.decim_W, config.num_taps,
-                                     config.decim, state.fir)
-    y, quad = F.quadrature_demod(re, im, state.quad)
-    audio, resamp = F.aligned_resample(
-        y, params.resamp_V, config.resample_up, config.resample_down,
-        state.resamp)
-    return audio, WbfmState(rot, fir, quad, resamp)
+    if boxcar:
+        re, im = F.boxcar_decimate_f32(re, im, config.decim)
+        fir = state.fir
+        y, quad = F.quadrature_demod(re, im, state.quad, atan_mode="fast")
+    else:
+        re, im, fir = F.fir_decimate_mxu(re, im, params.decim_W,
+                                         config.num_taps, config.decim,
+                                         state.fir)
+        y, quad = F.quadrature_demod(re, im, state.quad)
+    mpx = y  # before de-emphasis: the subcarriers must not be rolled off
+    deemph = state.deemph
+    if config.deemphasis_tau > 0:
+        y, deemph = F.deemphasis(
+            y, F.deemph_alpha(config.rate_out, config.deemphasis_tau), deemph)
+
+    up, down = config.resample_up, config.resample_down
+    aligned = y.shape[-1] % down == 0
+    resamp, box_resamp = state.resamp, state.box_resamp
+    if boxcar and aligned:
+        # every frame's emissions lie in the frame: no history
+        audio, _ = F.aligned_resample(y, params.box_V, up, down,
+                                      F.AlignedResampleState(
+                                          y.new_zeros(*y.shape[:-1], 0)))
+    elif boxcar:
+        audio, box_resamp = F.boxcar_resample_f32(
+            y, box_resamp, config.rate_out, config.rate_resample)
+    elif aligned:
+        audio, rs = F.aligned_resample(y, params.resamp_V, up, down,
+                                       F.AlignedResampleState(resamp.hist))
+        resamp = F.ResampleState(rs.hist, resamp.t0)
+    else:
+        audio, resamp = F.polyphase_resample(y, params.resamp_poly, up, down,
+                                             resamp)
+    new_state = WbfmState(rot, fir, quad, resamp, box_resamp, deemph)
+    if config.emit_mpx:
+        return audio, mpx, new_state
+    return audio, new_state
 
 
 class WbfmStreamer:
     """Feed u8 blocks of any size, receive float audio.  Each block is cut
     to a multiple of ``2*decim*resample_down`` bytes so every call stays on
-    the aligned resampler path; the residual bytes lead the next call."""
+    the aligned resampler path; the residual bytes lead the next call.
+    With ``config.emit_mpx`` each call also leaves the block's multiplex
+    in ``last_mpx``."""
 
     def __init__(self, config: WbfmConfig | None = None, *,
                  device: str | torch.device):
         self.config = config or WbfmConfig()
-        _check_ported(self.config)
         self.device = torch.device(device)
         self.params = WbfmParams(self.config, self.device)
         self.state = init_state(self.config, self.device)
         self._pending = np.zeros(0, dtype=np.uint8)
+        self.last_mpx: np.ndarray | None = None  # set when config.emit_mpx
 
     def demodulate(self, buf: np.ndarray) -> np.ndarray:
         data = np.concatenate([self._pending, np.asarray(buf, dtype=np.uint8)])
@@ -101,8 +147,12 @@ class WbfmStreamer:
         usable = len(data) - (len(data) % quantum)
         self._pending = data[usable:]
         if usable == 0:
+            if self.config.emit_mpx:
+                self.last_mpx = np.zeros(0, dtype=np.float32)
             return np.zeros(0, dtype=np.float32)
         block = torch.from_numpy(data[:usable]).to(self.device)
-        audio, self.state = demodulate_block(block, self.state, self.params,
-                                             self.config)
-        return audio.cpu().numpy()
+        out = demodulate_block(block, self.state, self.params, self.config)
+        self.state = out[-1]
+        if self.config.emit_mpx:
+            self.last_mpx = out[1].cpu().numpy()
+        return out[0].cpu().numpy()

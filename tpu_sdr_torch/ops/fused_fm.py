@@ -1,6 +1,5 @@
-"""Fused single-station WBFM chain: two CUDA kernels and their plain
-versions — the counterpart of the single-station half of
-``tpu_sdr/ops/pallas_fm.py``.
+"""Fused WBFM chain: two CUDA kernels and their plain versions, for one
+station or a station batch — the counterpart of ``tpu_sdr/ops/pallas_fm.py``.
 
     u8 bytes --K1 fm_front--> z (170 kHz discriminator output)
              --K2 fm_resample--> audio (32 kHz)
@@ -8,9 +7,12 @@ versions — the counterpart of the single-station half of
 K1 (``csrc/fm_front.cu``) unpacks, rotates by fs/4 from a phase argument,
 runs the 72-tap ÷6 FIR with the TPU kernel's effective taps and the
 discriminator with its 6-term atan.  K2 (``csrc/fm_resample.cu``) is the
-16/85 polyphase resampler.  Each wrapper launches its kernel for a CUDA
-tensor (or raises), takes its plain PyTorch version for a CPU tensor, and
-counts its launches in :data:`LAUNCHES`.
+16/85 polyphase resampler.  Each takes an optional leading station axis
+and runs a batch in one launch (``demodulate_fused_batch``,
+``FusedWbfmBatchStreamer``; the TPU kernel's (stations, nchunks) grid).
+Each wrapper launches its kernel for a CUDA tensor (or raises), takes its
+plain PyTorch version for a CPU tensor, and counts its launches (not its
+stations) in :data:`LAUNCHES`.
 
 State keeps the JAX package's layout so it converts 1:1: the (4, 128) f32
 carry of :func:`pack_state`, the (T-1,) resampler history and the fs/4
@@ -123,13 +125,15 @@ def pack_state(state: M.WbfmState, spec: FusedWbfmSpec) -> torch.Tensor:
 
 def unpack_state(carry: torch.Tensor, rot_phase: int,
                  resamp_hist: torch.Tensor, spec: FusedWbfmSpec) -> M.WbfmState:
-    """(4, 128) carry + phase + resampler history -> float-chain state."""
+    """(4, 128) carry + phase + resampler history -> float-chain state (on
+    the aligned resampler path; fresh boxcar and de-emphasis carries)."""
     Lm1 = spec.num_taps - 1
     return M.WbfmState(
         int(rot_phase),
         F.FirState(carry[0, :Lm1] / 255.0, carry[1, :Lm1] / 255.0),
         F.QuadState(carry[2, LANES - 1], carry[3, LANES - 1]),
-        F.AlignedResampleState(resamp_hist))
+        F.ResampleState(resamp_hist, 0),
+        F.boxcar_resample_init(carry.device), F.deemph_init(carry.device))
 
 
 # 6-term equioscillating fit of atan(t)/t on [0, 1] (the TPU kernel's
@@ -157,71 +161,131 @@ def atan2_poly6(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.where((x == 0) & (y == 0), 0.0, r)
 
 
-def fm_front_reference(data_u8: torch.Tensor, phase: int, carry: torch.Tensor,
+def station_phases(phase, stations: int) -> int | list[int]:
+    """``phase`` for a batch of ``stations``: one int for all, or a
+    sequence of one a station (returned as a list, or as one int when they
+    agree), each in 0..3."""
+    if isinstance(phase, (int, np.integer)):
+        phases = [int(phase)]
+    else:
+        phases = [int(p) for p in (phase.tolist() if hasattr(phase, "tolist")
+                                   else phase)]
+        if len(phases) != stations:
+            raise ValueError(f"{len(phases)} phases for {stations} stations")
+    if any(not 0 <= p <= 3 for p in phases):
+        raise ValueError(f"fs/4 phases {phases} not in 0..3")
+    return phases[0] if len(set(phases)) == 1 else phases
+
+
+def fm_front_reference(data_u8: torch.Tensor, phase, carry: torch.Tensor,
                        taps: torch.Tensor, decim: int
                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K1: 2n bytes -> (z (n/decim,) f32, new carry)."""
-    n = data_u8.numel() // 2
+    """Plain version of K1: 2n bytes -> (z (n/decim,) f32, new carry); with
+    a leading station axis, (S, 2n) bytes, a phase for all or one a
+    station, and (S, 4, 128) carries -> (S, n/decim) z and (S, 4, 128)
+    carries.  The FIR runs a tap at a time over every station, so a
+    station's outputs are the same bits in any batch."""
+    n = data_u8.shape[-1] // 2
     L = taps.numel()
-    x = data_u8.reshape(n, 2).to(torch.float32) * 2.0 - 255.0  # x255 scale
-    re, im, _ = F.rotate_fs4(x[:, 0], x[:, 1], phase)
-    xr = torch.cat([carry[0, :L - 1], re])
-    xi = torch.cat([carry[1, :L - 1], im])
-    y_re = torch.matmul(xr.unfold(0, L, decim), taps)  # (n/decim,)
-    y_im = torch.matmul(xi.unfold(0, L, decim), taps)
-    b_re = torch.cat([carry[2, LANES - 1:], y_re[:-1]])
-    b_im = torch.cat([carry[3, LANES - 1:], y_im[:-1]])
+    M = n // decim
+    x = data_u8.reshape(*data_u8.shape[:-1], n, 2).to(torch.float32) * 2.0 - 255.0
+    if not isinstance(phase, int):
+        phase = torch.as_tensor(phase, dtype=torch.int64)
+    re, im, _ = F.rotate_fs4(x[..., 0], x[..., 1], phase)
+    xs = torch.stack([torch.cat([carry[..., 0, :L - 1], re], dim=-1),
+                      torch.cat([carry[..., 1, :L - 1], im], dim=-1)])
+    y = taps[0] * xs[..., 0:decim * (M - 1) + 1:decim]
+    for j in range(1, L):
+        y = y + taps[j] * xs[..., j:j + decim * (M - 1) + 1:decim]
+    y_re, y_im = y[0], y[1]
+    b_re = torch.cat([carry[..., 2, LANES - 1:], y_re[..., :-1]], dim=-1)
+    b_im = torch.cat([carry[..., 3, LANES - 1:], y_im[..., :-1]], dim=-1)
     c_re = y_re * b_re + y_im * b_im
     c_im = y_im * b_re - y_re * b_im
     z = atan2_poly6(c_im, c_re) * (1.0 / math.pi)
     new = carry.clone()
-    new[0, :L - 1] = xr[n:]
-    new[1, :L - 1] = xi[n:]
-    new[2] = torch.cat([carry[2], y_re])[-LANES:]
-    new[3] = torch.cat([carry[3], y_im])[-LANES:]
+    new[..., 0, :L - 1] = xs[0, ..., n:]
+    new[..., 1, :L - 1] = xs[1, ..., n:]
+    new[..., 2, :] = torch.cat([carry[..., 2, :], y_re], dim=-1)[..., -LANES:]
+    new[..., 3, :] = torch.cat([carry[..., 3, :], y_im], dim=-1)[..., -LANES:]
     return z, new
 
 
-def _output(out: torch.Tensor | None, numel: int, device) -> torch.Tensor:
-    """``out`` checked as a contiguous f32 vector of ``numel`` on ``device``,
-    or a new one."""
+def _output(out: torch.Tensor | None, shape: tuple, device) -> torch.Tensor:
+    """``out`` checked as an f32 tensor of ``shape`` on ``device`` whose rows
+    are contiguous, or a new one."""
     if out is None:
-        return torch.empty(numel, dtype=torch.float32, device=device)
-    kernels.check_tensor(out, "out", torch.float32, device, (numel,))
+        return torch.empty(shape, dtype=torch.float32, device=device)
+    rows = out if len(shape) == 2 else out[None]
+    kernels.check_rows(rows, "out", torch.float32, device,
+                       shape if len(shape) == 2 else (1, *shape))
     return out
 
 
-def fm_front(data_u8: torch.Tensor, phase: int, carry: torch.Tensor,
+def _rows(t: torch.Tensor, batched: bool) -> torch.Tensor:
+    return t if batched else t[None]
+
+
+def fm_front(data_u8: torch.Tensor, phase, carry: torch.Tensor,
              taps: torch.Tensor, decim: int, out: torch.Tensor | None = None
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """K1: u8 I/Q (2n bytes, n % decim == 0) at fs/4 ``phase`` with the
-    (4, 128) ``carry`` and effective ``taps`` -> (z, new carry).  ``out``:
-    an (n/decim,) f32 tensor to write z into (a row of a station batch)."""
-    n = data_u8.numel() // 2
-    if data_u8.numel() % 2 or n == 0 or n % decim:
-        raise ValueError(f"{data_u8.numel()} bytes is not a positive whole "
-                         f"number of {decim}-sample groups of I/Q pairs")
-    if not 0 <= phase <= 3:
-        raise ValueError(f"fs/4 phase {phase} not in 0..3")
+    (4, 128) ``carry`` and effective ``taps`` -> (z (n/decim,), new carry).
+    With a leading station axis -- (S, 2n) bytes, ``phase`` one for all, a
+    sequence of one a station, or an (S,) int32 tensor on the card (taken
+    mod 4 there), (S, 4, 128) carries, the rows of each at
+    any stride (the sharded chain's carries are slices of its halo
+    records) -- ONE launch runs every station and returns (S, n/decim) z
+    and (S, 4, 128) carries.  ``out``: a tensor of z's shape to write z
+    into (its rows too at any stride)."""
+    batched = data_u8.dim() == 2
+    S = data_u8.shape[0] if batched else 1
+    nbytes = data_u8.shape[-1]
+    n = nbytes // 2
+    if data_u8.dim() not in (1, 2) or nbytes % 2 or n == 0 or n % decim \
+            or S == 0:
+        raise ValueError(f"data of shape {tuple(data_u8.shape)} is not rows "
+                         f"of a positive whole number of {decim}-sample "
+                         f"groups of I/Q pairs")
+    # a phase tensor on the card goes to K1 as it is (each taken mod 4)
+    on_card = torch.is_tensor(phase) and phase.device.type == "cuda"
+    phases = phase if on_card else station_phases(phase, S)
+    M = n // decim
+    z_shape = (S, M) if batched else (M,)
     if not kernels.on_cuda(data_u8):
-        z, new = fm_front_reference(data_u8, phase, carry, taps, decim)
+        z, new = fm_front_reference(data_u8, phases, carry, taps, decim)
         if out is not None:
-            z = _output(out, z.numel(), z.device).copy_(z)
+            z = _output(out, z_shape, z.device).copy_(z)
         return z, new
     dev = data_u8.device
-    kernels.check_tensor(data_u8, "data", torch.uint8, dev)
-    kernels.check_tensor(carry, "carry", torch.float32, dev, (STATE_ROWS, LANES))
+    rows = _rows(data_u8, batched)
+    iq_stride = kernels.check_rows(rows, "data", torch.uint8, dev, (S, nbytes))
+    carries = _rows(carry, batched)
+    c_stride = kernels.check_rows(carries, "carry", torch.float32, dev,
+                                  (S, STATE_ROWS, LANES))
     kernels.check_tensor(taps, "taps", torch.float32, dev, (taps.numel(),))
-    if taps.numel() - 1 > LANES or data_u8.data_ptr() % 2:
+    if taps.numel() - 1 > LANES or rows.data_ptr() % 2 or iq_stride % 2:
         raise ValueError("taps exceed the carry, or data is not 2-byte aligned")
+    z = _output(out, z_shape, dev)
+    z_rows = _rows(z, batched)
+    new = torch.empty((S, STATE_ROWS, LANES) if batched else
+                      (STATE_ROWS, LANES), dtype=torch.float32, device=dev)
     lib = kernels.load().cdll
-    z = _output(out, n // decim, dev)
-    new = torch.empty_like(carry)
     with torch.cuda.device(dev):
+        if isinstance(phases, int):
+            phase_ptr, uniform = None, phases
+        else:
+            if on_card:
+                kernels.check_tensor(phases, "phase", torch.int32, dev, (S,))
+            else:
+                phases = torch.tensor(phases, dtype=torch.int32, device=dev)
+            phase_ptr, uniform = phases.data_ptr(), 0
         stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.tsdr_fm_front(
-            data_u8.data_ptr(), n, phase, carry.data_ptr(), taps.data_ptr(),
-            taps.numel(), decim, z.data_ptr(), new.data_ptr(), stream)
+        status = lib.tsdr_fm_front_batch(
+            rows.data_ptr(), iq_stride, S, n, phase_ptr, uniform,
+            carries.data_ptr(), c_stride, taps.data_ptr(), taps.numel(),
+            decim, z_rows.data_ptr(), z_rows.stride(0), new.data_ptr(),
+            STATE_ROWS * LANES, stream)
     kernels.check(status, "fm_front")
     LAUNCHES["fm_front"] += 1
     return z, new
@@ -243,7 +307,8 @@ def aligned_poly_matrix(h_poly: torch.Tensor, down: int) -> torch.Tensor:
 def resample_reference(z: torch.Tensor, hist: torch.Tensor,
                        h_poly: torch.Tensor, down: int
                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K2: the frame-matmul ``aligned_resample``."""
+    """Plain version of K2: the frame-matmul ``aligned_resample``, along the
+    last axis of z ((n,) with a (T-1,) history, or (S, n) with (S, T-1))."""
     up = h_poly.shape[0]
     audio, rs = F.aligned_resample(z, aligned_poly_matrix(h_poly, down), up,
                                    down, F.AlignedResampleState(hist))
@@ -254,42 +319,72 @@ def resample(z: torch.Tensor, hist: torch.Tensor, h_poly: torch.Tensor,
              down: int, out: torch.Tensor | None = None
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """K2: z (multiple of ``down``) with (T-1,) history -> (audio
-    (len(z)/down*up,), new history).  ``out``: an f32 tensor of the audio's
-    length to write it into."""
+    (len(z)/down*up,), new history).  With a leading station axis -- (S, n)
+    z and (S, T-1) histories, the rows of each at any stride -- ONE launch
+    runs every station and returns (S, n/down*up) audio and (S, T-1)
+    histories.  ``out``: an f32 tensor of the audio's shape to write it
+    into (its rows at any stride)."""
     up, T = h_poly.shape
-    if z.dim() != 1 or z.numel() == 0 or z.numel() % down:
-        raise ValueError(f"z of shape {tuple(z.shape)} is not a 1-D whole "
-                         f"number of {down}-sample frames")
+    batched = z.dim() == 2
+    S = z.shape[0] if batched else 1
+    n = z.shape[-1]
+    if z.dim() not in (1, 2) or n == 0 or n % down or S == 0:
+        raise ValueError(f"z of shape {tuple(z.shape)} is not rows of a "
+                         f"whole number of {down}-sample frames")
+    a_shape = (S, n // down * up) if batched else (n // down * up,)
     if not kernels.on_cuda(z):
         audio, new = resample_reference(z, hist, h_poly, down)
         if out is not None:
-            audio = _output(out, audio.numel(), audio.device).copy_(audio)
+            audio = _output(out, a_shape, audio.device).copy_(audio)
         return audio, new
     dev = z.device
-    kernels.check_tensor(z, "z", torch.float32, dev)
-    kernels.check_tensor(hist, "hist", torch.float32, dev, (T - 1,))
+    z_rows = _rows(z, batched)
+    z_stride = kernels.check_rows(z_rows, "z", torch.float32, dev, (S, n))
+    hists = _rows(hist, batched)
+    h_stride = kernels.check_rows(hists, "hist", torch.float32, dev,
+                                  (S, T - 1))
     kernels.check_tensor(h_poly, "h_poly", torch.float32, dev, (up, T))
+    audio = _output(out, a_shape, dev)
+    a_rows = _rows(audio, batched)
+    new = torch.empty((S, T - 1) if batched else (T - 1,),
+                      dtype=torch.float32, device=dev)
     lib = kernels.load().cdll
-    audio = _output(out, z.numel() // down * up, dev)
-    new = torch.empty_like(hist)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.tsdr_fm_resample(
-            z.data_ptr(), z.numel(), hist.data_ptr(), h_poly.data_ptr(), up,
-            down, T, audio.data_ptr(), new.data_ptr(), stream)
+        status = lib.tsdr_fm_resample_batch(
+            z_rows.data_ptr(), z_stride, S, n, hists.data_ptr(), h_stride,
+            h_poly.data_ptr(), up, down, T, a_rows.data_ptr(),
+            a_rows.stride(0), new.data_ptr(), T - 1, stream)
     kernels.check(status, "fm_resample")
     LAUNCHES["fm_resample"] += 1
     return audio, new
 
 
-def demodulate_fused(data_u8: torch.Tensor, phase: int, carry: torch.Tensor,
+def demodulate_fused(data_u8: torch.Tensor, phase, carry: torch.Tensor,
                      resamp_hist: torch.Tensor, taps: torch.Tensor,
                      h_poly: torch.Tensor, spec: FusedWbfmSpec):
-    """K1 then K2 over one block of whole chunks (one station).  Returns
-    (audio, new carry, new resampler history)."""
+    """K1 then K2 over one block of whole chunks (one station, or a batch
+    with a leading station axis).  Returns (audio, new carry, new
+    resampler history)."""
     z, carry = fm_front(data_u8, phase, carry, taps, spec.decim)
     audio, resamp_hist = resample(z, resamp_hist, h_poly, spec.down)
     return audio, carry, resamp_hist
+
+
+def demodulate_fused_batch(data_u8: torch.Tensor, phases,
+                           carries: torch.Tensor, resamp_hists: torch.Tensor,
+                           taps: torch.Tensor, h_poly: torch.Tensor,
+                           spec: FusedWbfmSpec):
+    """The station batch, one K1 and one K2 launch over every station (the
+    counterpart of ``pallas_fm.demodulate_fused_batch``): (S, bytes) u8 of
+    whole chunks, ``phases`` one a station (or one for all), (S, 4, 128)
+    carries and (S, T-1) histories -> (audio (S, m), new carries, new
+    histories).  Stations may differ in phase: K1 rotates each at its own."""
+    if data_u8.dim() != 2:
+        raise ValueError(f"a station batch is (stations, bytes), not "
+                         f"{tuple(data_u8.shape)}")
+    return demodulate_fused(data_u8, phases, carries, resamp_hists, taps,
+                            h_poly, spec)
 
 
 class FusedWbfm(nn.Module):
@@ -336,4 +431,41 @@ class FusedWbfmStreamer:
         audio, self.state, self.resamp_hist = self.model(
             block, self.phase, self.state, self.resamp_hist)
         self.phase = (self.phase + usable // 2) % 4
+        return audio.cpu().numpy()
+
+
+class FusedWbfmBatchStreamer:
+    """The station batch over the kernels (the counterpart of
+    ``PallasWbfmBatchStreamer``): feed (stations, bytes) u8 blocks, receive
+    (stations, m) float audio.  Whole chunks of every row go through ONE K1
+    and ONE K2 launch; the residual leads the next call.  The carries keep
+    the JAX attribute names and shapes: ``states`` (S, 4, 128),
+    ``resamp_hists`` (S, T-1) and ``phases``, one a station (they may
+    differ: K1 rotates each station at its own)."""
+
+    def __init__(self, stations: int, config: WbfmConfig | None = None, *,
+                 device: str | torch.device):
+        self.device = torch.device(device)
+        self.model = FusedWbfm(config, device=self.device)
+        self.spec = self.model.spec
+        self.stations = stations
+        self.states = init_carry(self.device).repeat(stations, 1, 1)
+        self.resamp_hists = torch.zeros(stations, self.spec.taps_per_phase - 1,
+                                        dtype=torch.float32, device=self.device)
+        self.phases = [0] * stations
+        self._pending = np.zeros((stations, 0), dtype=np.uint8)
+
+    def demodulate(self, bufs: np.ndarray) -> np.ndarray:
+        data = np.concatenate([self._pending, np.asarray(bufs, dtype=np.uint8)],
+                              axis=1)
+        usable = data.shape[1] - (data.shape[1] % self.spec.chunk_bytes)
+        self._pending = data[:, usable:]
+        if usable == 0:
+            return np.zeros((self.stations, 0), dtype=np.float32)
+        block = torch.from_numpy(np.ascontiguousarray(data[:, :usable])
+                                 ).to(self.device)
+        audio, self.states, self.resamp_hists = demodulate_fused_batch(
+            block, self.phases, self.states, self.resamp_hists,
+            self.model.taps, self.model.h_poly, self.spec)
+        self.phases = [(p + usable // 2) % 4 for p in self.phases]
         return audio.cpu().numpy()

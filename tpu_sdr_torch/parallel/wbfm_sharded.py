@@ -33,7 +33,6 @@ from tpu_sdr_torch.ops import fused_fm as FF
 from tpu_sdr_torch.parallel import halo as H
 from tpu_sdr_torch.parallel import mesh as mesh_mod
 from tpu_sdr_torch.parallel.mesh import Mesh
-from tpu_sdr_torch.utils import design
 from tpu_sdr_torch.utils.design import WbfmConfig
 
 
@@ -74,10 +73,23 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def check_not_boxcar(config: WbfmConfig) -> None:
+    """The fused chain's kernels are the FIR chain's (JAX's Pallas chain is
+    FIR-only too)."""
     if config.filter_mode == "boxcar":
         raise NotImplementedError(
-            "the sharded boxcar mode waits for the float chain's boxcar "
-            "mode, which is not ported yet")
+            "the fused sharded chain runs the fir mode only; the boxcar "
+            "mode runs in make_sharded_wbfm")
+
+
+def resample_halo(config: WbfmConfig, n_out: int) -> int:
+    """The demodulated samples a shard's resampler needs from its left
+    neighbour: T-1 for the polyphase bank; for the boxcar window none on
+    whole frames, else ceil(rate_out / rate_resample)."""
+    if config.filter_mode == "boxcar":
+        if n_out % config.resample_down == 0:
+            return 0
+        return _cdiv(config.rate_out, config.rate_resample)
+    return config.resample_taps_per_phase - 1
 
 
 @dataclass(frozen=True)
@@ -144,20 +156,23 @@ def resample_shard(demod: torch.Tensor, halo: torch.Tensor, shard: int,
     """Per-shard audio resampler with global-phase closed forms.
 
     ``demod``: (stations_loc, n_out) discriminator output of time shard
-    ``shard``; ``halo``: its left neighbour's last T-1 samples (the
-    previous block's tail on shard 0).  Returns (audio (stations_loc,
-    m_max), count).  When every shard starts on a frame boundary (n_out %
-    down == 0) it is the serial aligned resampler with the halo as history:
-    the frame matmul with ``V``, or K2 (``fused_fm.resample``) per station
-    when ``kernel``.  Otherwise each output's global polyphase phase is
-    computed from the shard offset."""
-    check_not_boxcar(config)
+    ``shard``; ``halo``: its left neighbour's last
+    :func:`resample_halo` samples (the previous block's tail on shard 0).
+    Returns (audio (stations_loc, m_max), count).  When every shard starts
+    on a frame boundary (n_out % down == 0) it is the serial aligned
+    resampler with the halo as history: the frame matmul with ``V`` (the
+    polyphase bank's, or the boxcar window's with no halo), or one K2
+    launch over the stations (``fused_fm.resample``) when ``kernel``.
+    Otherwise each output's global phase is computed from the shard
+    offset: the polyphase windows, or the boxcar sums as differences of
+    one cumsum."""
     st, n_out = demod.shape
     up, down = config.resample_up, config.resample_down
     T = h_poly.shape[1]
-    if n_out < T - 1:
+    halo_len = resample_halo(config, n_out)
+    if n_out < halo_len:
         raise ValueError(f"time shard too small for the single-neighbour "
-                         f"resampler halo: n_out={n_out} needs >= {T - 1} "
+                         f"resampler halo: n_out={n_out} needs >= {halo_len} "
                          f"demodulated samples")
     if n_out % down == 0:
         count = n_out // down * up
@@ -165,19 +180,26 @@ def resample_shard(demod: torch.Tensor, halo: torch.Tensor, shard: int,
             audio, _ = F.aligned_resample(demod, V, up, down,
                                           F.AlignedResampleState(halo))
             return audio, count
-        audio = torch.empty(st, count, dtype=torch.float32,
-                            device=demod.device)
-        for j in range(st):
-            FF.resample(demod[j], halo[j].contiguous(), h_poly, down,
-                        out=audio[j])
-        return audio, count
+        return FF.resample(demod, halo, h_poly, down)[0], count
 
     start = shard * n_out  # global index of the shard's first sample
-    m_max = (n_out * up) // down + 1
     buf = torch.cat([halo, demod], dim=1)
+    dev = demod.device
+    if config.filter_mode == "boxcar":
+        fast, slow = config.rate_out, config.rate_resample
+        cs = torch.cumsum(buf, dim=1)
+        j0 = (start * slow) // fast
+        count = ((start + n_out) * slow) // fast - j0
+        j = j0 + torch.arange((n_out * slow) // fast + 1, device=dev)
+        e = ((j + 1) * fast + slow - 1) // slow - 1  # global emission index
+        e_prev = (j * fast + slow - 1) // slow - 1
+        le = torch.clamp(e - start + halo_len, 0, buf.shape[1] - 1)
+        lp = torch.clamp(e_prev - start + halo_len, -1, buf.shape[1] - 1)
+        cs_p = torch.where(lp >= 0, cs[:, lp.clamp(min=0)], 0.0)
+        return (cs[:, le] - cs_p) / float(fast // slow), count
+    m_max = (n_out * up) // down + 1
     j0 = _cdiv(start * up, down)
     count = _cdiv((start + n_out) * up, down) - j0
-    dev = demod.device
     m = j0 + torch.arange(m_max, device=dev)
     tt = m * down
     q = tt // up  # global input index of the newest window sample
@@ -200,7 +222,9 @@ def _rotated_samples(block: torch.Tensor):
 
 def make_sharded_wbfm(mesh: Mesh, config: WbfmConfig | None = None,
                       carry_io: bool = False) -> ShardedWbfm:
-    """The sharded float chain (``fir`` mode) on ``mesh``.
+    """The sharded float chain on ``mesh``, ``fir`` or ``boxcar`` mode (the
+    boxcar decimator's groups align with the shards: no FIR halo; the fast
+    atan; the boxcar resampler).
 
     ``carry_io``: block-to-block streaming.  ``fn`` becomes ``fn(shards,
     carry: XlaStreamCarry) -> (audio, counts, new_carry)``: the carry of
@@ -208,17 +232,21 @@ def make_sharded_wbfm(mesh: Mesh, config: WbfmConfig | None = None,
     and resampler halos, and the LAST time shard's end-of-block values come
     back (on ``mesh.home``) — feed them forward and the chain is
     sample-exact with one serial stream across blocks.  Start from
-    :func:`initial_xla_carry`."""
+    :func:`initial_xla_carry`.  As in JAX, streaming is defined for the
+    ``fir`` mode only."""
     config = config or WbfmConfig()
-    check_not_boxcar(config)
+    boxcar = config.filter_mode == "boxcar"
+    if carry_io and boxcar:
+        raise ValueError("carry_io streaming is defined for the fir mode")
     decim = config.decim
     L = config.num_taps
     T = config.resample_taps_per_phase
     banks = {}
     for dev in set(mesh.devices.flat):
         params = M.WbfmParams(config, dev)
-        banks[dev] = (params.decim_W, params.resamp_V, torch.from_numpy(
-            design.resampler_poly(config)).to(dev))
+        banks[dev] = (params.decim_W,
+                      params.box_V if boxcar else params.resamp_V,
+                      params.resamp_poly)
 
     def row_fn(blocks, carry):
         edge = None if carry is None else XlaStreamCarry(*carry)
@@ -230,23 +258,25 @@ def make_sharded_wbfm(mesh: Mesh, config: WbfmConfig | None = None,
                 raise ValueError("a time shard must be a multiple of 4 "
                                  "samples (rotation phase) and of the "
                                  f"decimation {decim}")
-            if n_loc < L - 1 or n_loc // decim < T - 1:
+            if not boxcar and n_loc < L - 1:
                 raise ValueError(f"time shard of {n_loc} samples is too "
-                                 "small for the single-neighbour halos")
+                                 "small for the single-neighbour FIR halo")
             rot.append(_rotated_samples(b))
 
-        # FIR: the left neighbour's last L-1 rotated samples
-        hre = H.pull_left_halo([r.T for r, _ in rot], L - 1,
-                               None if edge is None else edge.fir_re.T)
-        him = H.pull_left_halo([i.T for _, i in rot], L - 1,
-                               None if edge is None else edge.fir_im.T)
-        dec = []
-        for (re, im), h_re, h_im in zip(rot, hre, him):
-            W = banks[re.device][0]
-            xext = torch.cat([torch.cat([h_re.T, re], dim=1),
-                              torch.cat([h_im.T, im], dim=1)])
-            y = F.banded_decim_apply(xext, W, decim, re.shape[1] // decim)
-            dec.append((y[:st], y[st:]))
+        if boxcar:  # groups align with the shards: no halo
+            dec = [F.boxcar_decimate_f32(re, im, decim) for re, im in rot]
+        else:  # FIR: the left neighbour's last L-1 rotated samples
+            hre = H.pull_left_halo([r.T for r, _ in rot], L - 1,
+                                   None if edge is None else edge.fir_re.T)
+            him = H.pull_left_halo([i.T for _, i in rot], L - 1,
+                                   None if edge is None else edge.fir_im.T)
+            dec = []
+            for (re, im), h_re, h_im in zip(rot, hre, him):
+                W = banks[re.device][0]
+                xext = torch.cat([torch.cat([h_re.T, re], dim=1),
+                                  torch.cat([h_im.T, im], dim=1)])
+                y = F.banded_decim_apply(xext, W, decim, re.shape[1] // decim)
+                dec.append((y[:st], y[st:]))
 
         # discriminator: a 1-sample halo at the decimated rate; the global
         # left edge is seeded (1, 0) like the serial QuadState init
@@ -257,11 +287,16 @@ def make_sharded_wbfm(mesh: Mesh, config: WbfmConfig | None = None,
         pre_im = H.pull_left_halo([d.T for _, d in dec], 1,
                                   None if edge is None else edge.quad_im.T)
         demods = [F.quadrature_demod(d_re, d_im,
-                                     F.QuadState(p_re[0], p_im[0]))[0]
+                                     F.QuadState(p_re[0], p_im[0]),
+                                     atan_mode="fast" if boxcar else "exact")[0]
                   for (d_re, d_im), p_re, p_im in zip(dec, pre_re, pre_im)]
 
-        rs_halo = H.pull_left_halo([d.T for d in demods], T - 1,
-                                   None if edge is None else edge.rs.T)
+        halo_len = resample_halo(config, demods[0].shape[1])
+        if halo_len:
+            rs_halo = H.pull_left_halo([d.T for d in demods], halo_len,
+                                       None if edge is None else edge.rs.T)
+        else:
+            rs_halo = [d[:, :0].T for d in demods]
         audio, counts = [], []
         for s, (demod, h) in enumerate(zip(demods, rs_halo)):
             _, V, h_poly = banks[demod.device]
@@ -292,5 +327,6 @@ def sharded_wbfm_apply(chain: ShardedWbfm, blocks, *carry):
 
 
 def expected_m_max(config: WbfmConfig, n_loc_out: int) -> int:
-    check_not_boxcar(config)
+    if config.filter_mode == "boxcar":
+        return (n_loc_out * config.rate_resample) // config.rate_out + 1
     return (n_loc_out * config.resample_up) // config.resample_down + 1

@@ -12,8 +12,10 @@ The same (dp, sp) layout as ``wbfm_sharded``, but each shard's front end
    shard 0 gets the edge record ``[kernel_edge | rs_edge | 0]``, the
    global streaming carry (zeros and a previous sample of 1 + 0j for a
    fresh stream);
-3. K1 over each whole shard from the received carry, phase 0;
-4. K2 over its output with the received T-1 outputs as its halo.
+3. one K1 launch over each whole shard's stations from their received
+   carries, phase 0;
+4. one K2 launch over their outputs with the received T-1 outputs as
+   their halos.
 
 On a CUDA mesh the exchange is K4 (``cuda_halo.pull_left_halo_cuda``) and
 the records the kernel; on a CPU mesh both are their plain versions, as
@@ -111,17 +113,15 @@ def make_sharded_wbfm_fused(mesh: Mesh, config: WbfmConfig | None = None,
             [r.reshape(-1) for r in records], st * record,
             edge_record(kernel_edge, rs_edge).reshape(-1))
 
-        # K1 over each whole shard from the received carry, phase 0, then
-        # K2 with the received outputs as its halo
+        # one K1 launch over each whole shard's stations from their
+        # received carries, phase 0, then one K2 launch with the received
+        # outputs as their halos (both read the records where they lie)
         audio, counts, demods = [], [], []
         for s, (b, r) in enumerate(zip(blocks, recv)):
             taps, h_poly = banks[b.device]
             r = r.reshape(st, record)
-            demod = torch.empty(st, b.shape[1] // 2 // spec.decim,
-                                dtype=torch.float32, device=b.device)
-            for j in range(st):
-                FF.fm_front(b[j], 0, r[j, :SH.END].reshape(
-                    FF.STATE_ROWS, FF.LANES), taps, spec.decim, out=demod[j])
+            demod, _ = FF.fm_front(b, 0, r[:, :SH.END].reshape(
+                st, FF.STATE_ROWS, FF.LANES), taps, spec.decim)
             a, c = resample_shard(demod, r[:, SH.END:SH.END + T - 1], s,
                                   config, h_poly, kernel=True)
             audio.append(a)

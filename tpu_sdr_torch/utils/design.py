@@ -2,7 +2,8 @@
 
 Numpy copies of the weight builders that the JAX package keeps in modules
 which load JAX (``tpu_sdr/ops/fm.py``: ``make_banded_decim_matrix``,
-``make_split_bf16``, ``make_aligned_poly_matrix``, ``make_polyphase``;
+``make_split_bf16``, ``make_aligned_poly_matrix``,
+``make_aligned_boxcar_matrix``, ``make_polyphase``;
 ``tpu_sdr/models/wbfm.py``: ``WbfmConfig``; ``tpu_sdr/models/wbfm_exact.py``:
 ``optimal_settings``; ``tpu_sdr/ops/channelizer.py``: ``design_pfb``,
 ``pfb_mxu_matrices``, ``channel_frequencies``), with the same defaults and
@@ -127,6 +128,24 @@ def make_aligned_poly_matrix(h_poly: np.ndarray, up: int, down: int,
             for t in range(T):
                 V[(T - 1) + k * down + o - t, k * up + s] = hp[p, t]
     return V
+
+
+def make_aligned_boxcar_matrix(rate_out: int, rate_resample: int
+                               ) -> tuple[np.ndarray, int, int]:
+    """V (down, up) for the reference's boxcar resampler on whole frames,
+    and its (up, down): emission s of a frame averages inputs (e_{s-1},
+    e_s] with e_s = ceil((s+1)*fast/slow) - 1, scaled by 1/(fast//slow).
+    No window crosses the frame's left edge, so V has no history rows."""
+    g = math.gcd(rate_out, rate_resample)
+    up, down = rate_resample // g, rate_out // g
+    div = rate_out // rate_resample
+    V = np.zeros((down, up), dtype=np.float32)
+    fast, slow = rate_out, rate_resample
+    for s in range(up):
+        e = ((s + 1) * fast + slow - 1) // slow - 1
+        e_prev = (s * fast + slow - 1) // slow - 1
+        V[e_prev + 1:e + 1, s] = 1.0 / div
+    return V, up, down
 
 
 def make_polyphase(h: np.ndarray, up: int) -> np.ndarray:

@@ -4,6 +4,8 @@ same arithmetic, so that both packages make the same bytes.
 
 A known audio tone is FM-modulated, offset (or placed in a wideband
 capture) and quantized to interleaved u8 I/Q, as an RTL-SDR delivers it.
+``snr_db`` and ``align_and_snr`` score one chain's audio against
+another's (the boxcar chain against the exact one).
 """
 
 from __future__ import annotations
@@ -78,3 +80,36 @@ def tone_snr(x: np.ndarray, freq: float, fs: float, skip: int = 0) -> float:
     if p_err == 0:
         return np.inf
     return float(10 * np.log10(np.dot(fit, fit) / p_err))
+
+
+def snr_db(reference: np.ndarray, test: np.ndarray, skip: int = 0) -> float:
+    """SNR (dB) of ``test`` against ``reference`` after the best scalar gain,
+    both mean-removed, the first ``skip`` samples dropped."""
+    n = min(len(reference), len(test))
+    r = np.asarray(reference[skip:n], dtype=np.float64)
+    x = np.asarray(test[skip:n], dtype=np.float64)
+    r = r - r.mean()
+    x = x - x.mean()
+    denom = np.dot(x, x)
+    if denom == 0:
+        return -np.inf
+    err = r - np.dot(r, x) / denom * x
+    p_err = np.dot(err, err)
+    if p_err == 0:
+        return np.inf
+    return float(10 * np.log10(np.dot(r, r) / p_err))
+
+
+def align_and_snr(reference: np.ndarray, test: np.ndarray, max_lag: int = 256,
+                  skip: int = 0) -> tuple[float, int]:
+    """The best :func:`snr_db` over integer lags in [-max_lag, max_lag], and
+    its lag (filter delays shift one chain against another)."""
+    best = (-np.inf, 0)
+    for lag in range(-max_lag, max_lag + 1):
+        if lag >= 0:
+            s = snr_db(reference[lag:], test, skip=skip)
+        else:
+            s = snr_db(reference, test[-lag:], skip=skip)
+        if s > best[0]:
+            best = (s, lag)
+    return best
