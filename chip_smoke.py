@@ -46,7 +46,19 @@ the ported paths through their user entry points:
   the card against the CPU (bit-equal) and the golden vectors, ``simple_fm
   --mode exact``, ``--mode boxcar`` and ``--mode fir --deemph 75`` on the
   10.24 s station (their real-time factors), the boxcar, de-emphasis and
-  multiplex chains on the card against the CPU, and boxcar against exact.
+  multiplex chains on the card against the CPU, and boxcar against exact;
+* the receivers of the JAX package's other CLIs: ``simple_fm --mode
+  stereo --rds`` on a 10.24 s stereo station carrying RDS (the sent PI,
+  PS and RadioText decoded, separation, >= 1x real time, the streamer on
+  the card against the CPU) and ``--mode stereo`` on 2.56 s without RDS
+  (tone SNR); ``rtl_fm -M wbfm --rds`` on it; ``rtl_fm -M fm|am|usb|lsb``
+  on 10.24 s narrowband captures (tone, card against CPU, >= 1x real
+  time) and ``-l`` on noise; ``multi_fm --fused --rds`` on 1.024 s of 8
+  stations, 4 of them with RDS (K3 launched; each station's text on its
+  own channel only); ``rtl_power --file`` on a tone (its bin; card
+  against CPU within 0.01 dB); checkpoint/resume on the card (stereo,
+  multimode, fused, fused wideband, and the sharded streamer after a
+  graph replay); ``simple_fm --mode fused --trace`` naming both kernels.
 
 Each path's launch counts are zeroed just before it runs and read just
 after; the audio is checked (length, tone SNR, agreement with the plain
@@ -118,6 +130,18 @@ PARENT_SLACK = 1.05          # one station's K1/K2 against the parent's sources
 CLI_READ = 262_144           # the CLIs' read, the reference's block
 MODE_CHUNKS = 40             # 2.56 s of the path's capture, card against CPU
 SNR_BOXCAR_EXACT_DB = 60.0   # the float boxcar chain against the exact one
+
+# the receivers: stereo + RDS, rtl_fm's modes, rtl_power, checkpoint, trace
+RDS_PI, RDS_PS, RDS_RT = 0xC0DE, "TPU SDR!", "HELLO FROM THE H100"
+SNR_STEREO_TONE_DB = 50.0    # tests/test_stereo.py's bars
+SEP_STEREO_DB = 30.0
+SNR_MODE_TONE_DB = {"fm": 30.0, "am": 30.0, "usb": 25.0, "lsb": 25.0}
+MODE_SKIP = 32               # the channel filter's start-up, left out
+REALTIME_MIN = 1.0           # a live receiver must keep up
+WB_RDS = {3: (0xA003, "CH 3 RDS"), 15: (0xA015, "CH15 RDS"),
+          43: (0xA043, "CH43 RDS"), 55: (0xA055, "CH55 RDS")}
+PSD_RATE = 2_048_000
+PSD_DB_TOL = 0.01
 
 
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit):
@@ -212,24 +236,31 @@ def host_ms(fn) -> float:
     return statistics.median(times)
 
 
-def run_app(argv: list[str]):
-    """Run the port's simple_fm CLI in-process; returns its s16 stdout."""
-    import numpy as np
+def run_cli(app: str, argv: list[str]) -> tuple[bytes, str]:
+    """Run one of the port's CLIs in-process; returns its stdout bytes and
+    what it printed to stderr (its log lines go to the real stderr)."""
+    import importlib
 
-    from tpu_sdr_torch.apps import simple_fm
-
-    raw = io.BytesIO()
-    saved = sys.stdout
+    module = importlib.import_module(f"tpu_sdr_torch.apps.{app}")
+    raw, err = io.BytesIO(), io.StringIO()
+    saved = sys.stdout, sys.stderr
     sys.stdout = io.TextIOWrapper(raw, write_through=True)
+    sys.stderr = err
     try:
-        rc = simple_fm.main(argv)
+        rc = module.main(argv)
         sys.stdout.flush()
-        pcm = np.frombuffer(raw.getvalue(), dtype="<i2").copy()
     finally:
         sys.stdout.detach()
-        sys.stdout = saved
-    require(rc == 0, f"simple_fm {' '.join(argv)} returned {rc}")
-    return pcm
+        sys.stdout, sys.stderr = saved
+    require(rc == 0, f"{app} {' '.join(argv)} returned {rc}")
+    return raw.getvalue(), err.getvalue()
+
+
+def run_app(argv: list[str], app: str = "simple_fm"):
+    """Run a port CLI that writes s16 audio; returns the audio."""
+    import numpy as np
+
+    return np.frombuffer(run_cli(app, argv)[0], dtype="<i2").copy()
 
 
 def pfb_float64(data, carry, h_poly, spec, frames: int):
@@ -1282,6 +1313,424 @@ def modes(dev, u8, spec) -> dict:
             "exact_samples": len(exact_dev)}
 
 
+def stereo_quality(audio, skip: int = 2000) -> dict:
+    """(2, m) stereo audio carrying an 800 Hz tone in L and a 1,300 Hz tone
+    in R (either may be absent): both tones are fitted in each channel;
+    each channel's tone SNR is its own tone against what neither tone
+    explains, and each tone's separation is its level in its channel over
+    its level in the other (the crosstalk counts there, not as noise)."""
+    import numpy as np
+
+    a = np.asarray(audio, dtype=np.float64)[:, skip:]
+    t = np.arange(a.shape[1]) / 32_000
+    basis = np.stack([np.ones_like(t)] + [
+        f(2 * np.pi * fr * t) for fr in (800.0, 1_300.0)
+        for f in (np.sin, np.cos)], axis=1)
+    amp, noise = [], []
+    for ch in range(2):
+        c, *_ = np.linalg.lstsq(basis, a[ch], rcond=None)
+        res = a[ch] - basis @ c
+        amp.append((np.hypot(c[1], c[2]), np.hypot(c[3], c[4])))
+        noise.append(np.dot(res, res) / len(res))
+    return {"snr_l_db": 10 * np.log10(amp[0][0] ** 2 / 2 / noise[0]),
+            "snr_r_db": 10 * np.log10(amp[1][1] ** 2 / 2 / noise[1]),
+            "sep_l_db": 20 * np.log10(amp[0][0] / max(amp[1][0], 1e-30)),
+            "sep_r_db": 20 * np.log10(amp[1][1] / max(amp[0][1], 1e-30))}
+
+
+def rds_lines(err: str, tag: str = "[rds]") -> dict:
+    """The ``tag`` lines of a CLI's stderr by kind: {"PI": {...}, ...}."""
+    kinds = {}
+    for line in err.splitlines():
+        if line.startswith(tag + " "):
+            kind, _, value = line[len(tag) + 1:].partition(": ")
+            kinds.setdefault(kind, set()).add(value)
+    return kinds
+
+
+def receivers(dev, spec, smi: str) -> dict:
+    """The receivers of the JAX package's other CLIs, through their entry
+    points on the card: (a) ``simple_fm --mode stereo --rds`` on a 10.24 s
+    stereo station with RDS, and ``--mode stereo`` on 2.56 s without;
+    (b) ``rtl_fm -M wbfm --rds`` on the RDS station; (c) ``rtl_fm -M
+    fm|am|usb|lsb`` on 10.24 s narrowband captures and ``-l`` on noise;
+    (d) ``multi_fm --fused --rds`` on 1.024 s of 8 stations, 4 with RDS;
+    (e) ``rtl_power --file``; (f) checkpoint/resume on the card; (g)
+    ``simple_fm --trace``.  Each against the same streamer on the CPU
+    where the JAX tests' bars say so.  Returns the numbers."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from tpu_sdr_torch.models import multimode as TM
+    from tpu_sdr_torch.models import rds as R
+    from tpu_sdr_torch.models import wbfm_stereo as TS
+    from tpu_sdr_torch.models import wbfm_wideband as WB
+    from tpu_sdr_torch.ops import fused_channelizer as FC
+    from tpu_sdr_torch.ops import fused_fm as FF
+    from tpu_sdr_torch.ops import spectrum as SP
+    from tpu_sdr_torch.parallel import mesh as PM
+    from tpu_sdr_torch.parallel import wbfm_sharded_fused as WSF
+    from tpu_sdr_torch.stream import checkpoint as C
+    from tpu_sdr_torch.utils import synth
+
+    cpu = torch.device("cpu")
+    out = {}
+    n_path = PATH_CHUNKS * spec.chunk_complex
+    n_part = MODE_CHUNKS * spec.chunk_complex
+
+    def stream(streamer, data):
+        return np.concatenate([streamer.demodulate(data[s:s + CLI_READ])
+                               for s in range(0, len(data), CLI_READ)],
+                              axis=-1)
+
+    def timed_cli(app, argv, path, n_complex, rate=REALTIME_SPS):
+        """The CLI on ``path``: set-up paid first on one read, then timed
+        (host clock) on the whole file."""
+        with open(path, "rb") as f:
+            head = f.read(CLI_READ)
+        warm = path + ".head"
+        with open(warm, "wb") as f:
+            f.write(head)
+        run_cli(app, [a if a != path else warm for a in argv])
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        raw, err = run_cli(app, argv)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        return raw, err, wall, n_complex / wall / rate
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- (a) stereo + RDS ---------------------------------------------
+        rt = RDS_RT + "\r"
+        rt += " " * (-len(rt) % 4)
+        groups = ([R.make_group_0a(RDS_PI, 9, s, RDS_PS[2 * s:2 * s + 2])
+                   for s in range(4)]
+                  + [R.make_group_2a(RDS_PI, 9, s, rt[4 * s:4 * s + 4])
+                     for s in range(len(rt) // 4)])
+        one = np.concatenate(groups)
+        n_bits = int(n_path / REALTIME_SPS * R.RDS_RATE) + 2
+        bits = np.tile(one, n_bits // len(one) + 1)[:n_bits]
+        t0 = time.monotonic()
+        u8_st, _, _ = synth.synth_wbfm_stereo_u8(n_path, REALTIME_SPS,
+                                                 rds_bits=bits)
+        u8_plain, _, _ = synth.synth_wbfm_stereo_u8(n_part, REALTIME_SPS)
+        print(f"stereo captures: {n_path} complex with RDS (PI {RDS_PI:04X}, "
+              f"PS {RDS_PS!r}, RT {RDS_RT!r}), {n_part} without, made in "
+              f"{time.monotonic() - t0:.1f} s", flush=True)
+        st_path = os.path.join(tmp, "stereo_rds.u8")
+        u8_st.tofile(st_path)
+        raw, err, wall, rtf = timed_cli(
+            "simple_fm", ["--file", st_path, "--mode", "stereo", "--rds"],
+            st_path, n_path)
+        pcm = np.frombuffer(raw, dtype="<i2").reshape(-1, 2).T
+        expect = n_path // (3 * 85) * 8
+        require(abs(pcm.shape[1] - expect) <= 8 * CLI_READ // 510,
+                f"stereo: {pcm.shape[1]} samples a channel, expected {expect}")
+        lines = rds_lines(err)
+        want = {"PI": {f"{RDS_PI:04X}"}, "PS": {repr(RDS_PS)},
+                "RT": {repr(RDS_RT)}}
+        for kind, value in want.items():
+            require(lines.get(kind) == value, f"simple_fm --mode stereo "
+                    f"--rds: {kind} lines {lines.get(kind)}, sent {value}")
+        q_rds = stereo_quality(pcm)
+        for side in ("l", "r"):
+            require(q_rds[f"sep_{side}_db"] >= SEP_STEREO_DB,
+                    f"stereo separation {side}: {q_rds[f'sep_{side}_db']:.1f} dB")
+        require(rtf >= REALTIME_MIN, f"stereo + RDS at {rtf:.2f}x real time")
+        plain_path = os.path.join(tmp, "stereo.u8")
+        u8_plain.tofile(plain_path)
+        q = stereo_quality(np.frombuffer(run_cli(
+            "simple_fm", ["--file", plain_path, "--mode", "stereo"])[0],
+            dtype="<i2").reshape(-1, 2).T)
+        for key, bar in (("snr_l_db", SNR_STEREO_TONE_DB),
+                         ("snr_r_db", SNR_STEREO_TONE_DB),
+                         ("sep_l_db", SEP_STEREO_DB),
+                         ("sep_r_db", SEP_STEREO_DB)):
+            require(q[key] >= bar, f"stereo without RDS: {key} {q[key]:.1f}")
+        part = u8_st[:2 * n_part]
+        st_out, st_mpx = {}, {}
+        for where, d in (("card", dev), ("cpu", cpu)):
+            s = TS.WbfmStereoStreamer(TS.StereoConfig(emit_mpx=True), device=d)
+            st_out[where] = stream(s, part)
+            st_mpx[where] = s.last_mpx
+        s_card = min(snr_db(st_out["cpu"][ch], st_out["card"][ch])
+                     for ch in range(2))
+        s_mpx = snr_db(st_mpx["cpu"], st_mpx["card"])
+        require(st_out["card"].shape == st_out["cpu"].shape
+                and min(s_card, s_mpx) >= SNR_KERNEL_DB,
+                f"stereo on the card vs the CPU: {s_card:.1f} dB, multiplex "
+                f"{s_mpx:.1f} dB")
+        out["stereo_rds"] = {"complex": n_path, "wall_s": wall,
+                             "realtime_x": rtf, "rds": {k: sorted(v) for k, v
+                                                        in lines.items()},
+                             **q_rds, "card_vs_cpu_db": s_card,
+                             "mpx_card_vs_cpu_db": s_mpx}
+        out["stereo"] = {"complex": n_part, **q}
+        print(f"simple_fm --mode stereo --rds on {dev}: {pcm.shape[1]} "
+              f"samples a channel, RDS {', '.join(f'{k} {sorted(v)}' for k, v in lines.items())}, "
+              f"separation L {q_rds['sep_l_db']:.1f} / R {q_rds['sep_r_db']:.1f}"
+              f" dB, two-tone SNR L {q_rds['snr_l_db']:.1f} / R "
+              f"{q_rds['snr_r_db']:.1f} dB (the RDS subcarrier's 19 kHz "
+              f"product with the 38 kHz carrier aliases to 13 kHz), card vs "
+              f"CPU {s_card:.1f} dB (multiplex {s_mpx:.1f}) over "
+              f"{n_part / REALTIME_SPS:.2f} s, wall {wall:.3f} s = "
+              f"{rtf:.2f}x real time ({smi})", flush=True)
+        print(f"simple_fm --mode stereo on {dev} (no RDS): SNR L "
+              f"{q['snr_l_db']:.1f} / R {q['snr_r_db']:.1f} dB, separation "
+              f"L {q['sep_l_db']:.1f} / R {q['sep_r_db']:.1f} dB", flush=True)
+
+        # ---- (b) rtl_fm -M wbfm --rds on the same capture -------------------
+        raw, err, wall, rtf = timed_cli(
+            "rtl_fm", ["-M", "wbfm", "--rds", "--file", st_path], st_path,
+            n_path)
+        lines = rds_lines(err)
+        for kind in ("PI", "PS"):
+            require(lines.get(kind) == want[kind], f"rtl_fm -M wbfm --rds: "
+                    f"{kind} lines {lines.get(kind)}")
+        require(rtf >= REALTIME_MIN, f"rtl_fm -M wbfm --rds at {rtf:.2f}x")
+        out["rtl_fm"] = {"wbfm_rds": {"wall_s": wall, "realtime_x": rtf,
+                                      "rds": {k: sorted(v)
+                                              for k, v in lines.items()}}}
+        print(f"rtl_fm -M wbfm --rds on {dev}: RDS "
+              f"{', '.join(f'{k} {sorted(v)}' for k, v in lines.items())}, "
+              f"wall {wall:.3f} s = {rtf:.2f}x real time ({smi})", flush=True)
+        del u8_st, u8_plain, part
+
+        # ---- (c) rtl_fm's narrowband modes, as tests/test_multimode.py -----
+        t = np.arange(n_path) / REALTIME_SPS
+        offset = np.choose(np.arange(n_path) % 4, [1 + 0j, -1j, -1 + 0j, 1j])
+
+        def narrowband(mode):
+            if mode == "fm":
+                return np.asarray(synth.synth_wbfm_u8(
+                    n_path, capture_rate=REALTIME_SPS, audio_freq=1_000.0,
+                    deviation=5_000.0)[0], np.uint8)
+            if mode == "am":
+                bb = 0.45 * (1.0 + 0.8 * np.sin(2 * np.pi * 1_000.0 * t))
+            else:
+                sign = 1 if mode == "usb" else -1
+                bb = 0.7 * np.exp(sign * 2j * np.pi * 1_000.0 * t)
+            return synth._to_u8(bb * offset)
+
+        mm_cfg = {"fm": "nbfm", "am": "am", "usb": "usb", "lsb": "lsb"}
+        for mode, bar in SNR_MODE_TONE_DB.items():
+            u8_m = narrowband(mode)
+            path = os.path.join(tmp, f"{mode}.u8")
+            u8_m.tofile(path)
+            raw, _, wall, rtf = timed_cli(
+                "rtl_fm", ["-M", mode, "--file", path], path, n_path)
+            pcm = np.frombuffer(raw, dtype="<i2").astype(np.float64)
+            tone = synth.tone_snr(pcm, 1_000.0, 32_000, skip=400)
+            mm_out = {}
+            for where, d in (("card", dev), ("cpu", cpu)):
+                s = TM.MultimodeStreamer(TM.MultimodeConfig(
+                    mode=mm_cfg[mode]), device=d)
+                mm_out[where] = stream(s, u8_m[:2 * n_part])
+            s_card = snr_db(mm_out["cpu"][MODE_SKIP:],
+                            mm_out["card"][MODE_SKIP:])
+            require(abs(len(pcm) - n_path * 16 // 510) <= 2 * CLI_READ // 510,
+                    f"rtl_fm -M {mode}: {len(pcm)} samples")
+            require(tone >= bar, f"rtl_fm -M {mode}: tone {tone:.1f} dB")
+            require(s_card >= SNR_KERNEL_DB, f"rtl_fm -M {mode}: card vs CPU "
+                    f"{s_card:.1f} dB")
+            require(rtf >= REALTIME_MIN, f"rtl_fm -M {mode} at {rtf:.2f}x")
+            out["rtl_fm"][mode] = {"tone_db": tone, "card_vs_cpu_db": s_card,
+                                   "wall_s": wall, "realtime_x": rtf}
+            print(f"rtl_fm -M {mode} on {dev}: {len(pcm)} samples, tone "
+                  f"{tone:.1f} dB, card vs CPU {s_card:.1f} dB over "
+                  f"{n_part / REALTIME_SPS:.2f} s, wall {wall:.3f} s = "
+                  f"{rtf:.2f}x real time ({smi})", flush=True)
+        rng = np.random.default_rng(9)
+        n_noise = n_part // 4
+        path = os.path.join(tmp, "noise.u8")
+        synth._to_u8(rng.normal(0, 0.003, n_noise)
+                     + 1j * rng.normal(0, 0.003, n_noise)).tofile(path)
+        pcm = np.frombuffer(run_cli("rtl_fm", ["-M", "fm", "-l", "-35",
+                                               "--file", path])[0], "<i2")
+        require(len(pcm) > 1000 and not pcm.any(),
+                "rtl_fm -M fm -l -35 did not mute a noise-only capture")
+        out["rtl_fm"]["squelch_noise_muted_samples"] = len(pcm)
+        print(f"rtl_fm -M fm -l -35 on noise: {len(pcm)} samples, all 0",
+              flush=True)
+        del t, offset
+
+        # ---- (d) multi_fm --fused --rds: 8 stations, 4 with RDS --------------
+        config = WB.WidebandConfig(channels=WB_CHANNELS)
+        K = config.num_channels
+        n_wb = WB_PATH_READS * WB_READ_BYTES // 2
+        n_bits = int(n_wb / config.capture_rate * R.RDS_RATE) + 2
+        rds_bits = []
+        for ch in WB_CHANNELS:
+            if ch in WB_RDS:
+                pi, ps = WB_RDS[ch]
+                g = np.concatenate([R.make_group_0a(pi, 5, s, ps[2 * s:2 * s + 2])
+                                    for s in range(4)])
+                rds_bits.append(np.tile(g, n_bits // len(g) + 1)[:n_bits])
+            else:
+                rds_bits.append(None)
+        t0 = time.monotonic()
+        u8_wb, _ = synth.synth_multistation_u8(
+            n_wb, config.capture_rate,
+            station_freqs=[(k if k <= K // 2 else k - K) * config.channel_rate
+                           for k in WB_CHANNELS],
+            audio_freqs=list(WB_TONES), deviation=60_000.0, rds_bits=rds_bits)
+        path = os.path.join(tmp, "wideband_rds.u8")
+        u8_wb.tofile(path)
+        print(f"wideband RDS capture: {n_wb} complex, RDS on channels "
+              f"{sorted(WB_RDS)}, made in {time.monotonic() - t0:.1f} s",
+              flush=True)
+        del u8_wb
+        FC.reset_launch_counts()
+        t0 = time.monotonic()
+        _, err = run_cli("multi_fm", [
+            "--file", path, "--channels", ",".join(map(str, WB_CHANNELS)),
+            "--fused", "--rds", "--out-dir", os.path.join(tmp, "wb_out")])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = FC.LAUNCHES["pfb_channelize"]
+        require(launches > 0, "multi_fm --fused --rds never launched K3")
+        found = {}
+        for ch in WB_CHANNELS:
+            lines = rds_lines(err, f"[rds ch{ch}]")
+            if ch in WB_RDS:
+                pi, ps = WB_RDS[ch]
+                require(lines.get("PI") == {f"{pi:04X}"}
+                        and lines.get("PS") == {repr(ps)},
+                        f"multi_fm --rds channel {ch}: {lines}")
+            else:
+                require(not lines, f"multi_fm --rds: channel {ch} carries no "
+                        f"RDS but printed {lines}")
+            found[ch] = {k: sorted(v) for k, v in lines.items()}
+        rtf = n_wb / wall / config.capture_rate
+        out["multi_fm_rds"] = {"complex": n_wb, "pfb_channelize_launches":
+                               launches, "rds": found, "wall_s": wall,
+                               "realtime_x": rtf}
+        print(f"multi_fm --fused --rds on {dev}: K3 launches {launches}, "
+              f"RDS {found}, wall {wall:.3f} s = {rtf:.2f}x real time "
+              f"({smi})", flush=True)
+
+        # ---- (e) rtl_power --file: a tone at +fs/8 ---------------------------
+        n_psd = PSD_RATE * 5 // 4
+        rng = np.random.default_rng(7)
+        ph = 2 * np.pi * 0.125 * np.arange(n_psd)
+        u8_psd = np.empty(2 * n_psd, np.uint8)
+        u8_psd[0::2] = np.clip(np.round(127.5 + 100 * np.cos(ph)
+                                        + rng.normal(0, 1.0, n_psd)), 0, 255)
+        u8_psd[1::2] = np.clip(np.round(127.5 + 100 * np.sin(ph)
+                                        + rng.normal(0, 1.0, n_psd)), 0, 255)
+        path = os.path.join(tmp, "tone.u8")
+        u8_psd.tofile(path)
+        center = 100_000_000
+        argv = ["-f", str(center), "-s", str(PSD_RATE), "--file", path]
+        t0 = time.monotonic()
+        text = run_cli("rtl_power", argv)[0].decode()
+        wall = time.monotonic() - t0
+        fields = [p.strip() for p in text.strip().split(",")]
+        hz_low, step = int(fields[2]), float(fields[4])
+        bins = np.array([float(v) for v in fields[6:]])
+        peak_hz = hz_low + step * int(np.argmax(bins))
+        require(abs(peak_hz - (center + PSD_RATE / 8)) <= step,
+                f"rtl_power: peak at {peak_hz} Hz, tone at "
+                f"{center + PSD_RATE / 8}")
+        n_fft = len(bins)
+        db = {}
+        for where, d in (("card", dev), ("cpu", cpu)):
+            ps = SP.PsdStreamer(n_fft, device=d)
+            for s in range(0, len(u8_psd), CLI_READ):
+                ps.accumulate(u8_psd[s:s + CLI_READ])
+            db[where] = ps.finalize_db()
+        above = db["cpu"] > -100.0
+        d_db = float(np.abs(db["card"] - db["cpu"])[above].max())
+        require(d_db <= PSD_DB_TOL, f"rtl_power: card vs CPU {d_db:.4f} dB")
+        out["rtl_power"] = {"n_fft": n_fft, "peak_hz": peak_hz,
+                            "max_card_vs_cpu_db": d_db, "wall_s": wall}
+        print(f"rtl_power --file on {dev}: {n_fft} bins, peak at {peak_hz:.0f}"
+              f" Hz (tone at {center + PSD_RATE / 8:.0f}), card vs CPU within "
+              f"{d_db:.2e} dB over {int(above.sum())} bins above -100 dB, wall "
+              f"{wall:.3f} s ({smi})", flush=True)
+        del u8_psd, ph
+
+        # ---- (f) checkpoint/resume on the card -------------------------------
+        def roundtrip(make, data, split, axis=0):
+            ref = make()
+            full = np.concatenate([ref.demodulate(data[..., :split]),
+                                   ref.demodulate(data[..., split:])],
+                                  axis=axis)
+            first = make()
+            out1 = first.demodulate(data[..., :split])
+            ck = os.path.join(tmp, "ck.npz")
+            C.save_stream_state(ck, first)
+            resumed = make()
+            C.load_stream_state(ck, resumed)
+            on_card = all(x.device == dev for x in C._flatten(
+                getattr(resumed, "state", getattr(resumed, "states", None)))
+                if torch.is_tensor(x))
+            got = np.concatenate([out1, resumed.demodulate(data[..., split:])],
+                                 axis=axis)
+            return got.size > 0 and on_card and np.array_equal(got, full)
+
+        rng = np.random.default_rng(21)
+        u8_ck, _, _ = synth.synth_wbfm_stereo_u8(4 * spec.chunk_complex,
+                                                 REALTIME_SPS)
+        wb_ck = rng.integers(0, 256, 4 * WB_READ_BYTES, dtype=np.uint8)
+        ck = {
+            "stereo": roundtrip(lambda: TS.WbfmStereoStreamer(
+                TS.StereoConfig(emit_mpx=True), device=dev), u8_ck, 150_001,
+                axis=1),
+            "multimode": roundtrip(lambda: TM.MultimodeStreamer(
+                TM.MultimodeConfig(mode="usb", fine_tune_hz=120.0),
+                device=dev), u8_ck, 150_001),
+            "fused": roundtrip(lambda: FF.FusedWbfmStreamer(device=dev),
+                               u8_ck, 2 * spec.chunk_bytes + 1_001),
+            "fused_wideband": roundtrip(lambda: WB.WidebandStreamer(
+                config, use_fused=True, device=dev), wb_ck,
+                2 * WB_READ_BYTES + 1_001, axis=1),
+        }
+        mesh = PM.make_mesh(1, 2, devices=[dev] * 2)
+        blocks = [rng.integers(0, 256, (2, 2 * spec.chunk_bytes),
+                               dtype=np.uint8) for _ in range(3)]
+        ref = WSF.ShardedFusedStreamer(mesh, 2)
+        exp = [ref.demodulate(b) for b in blocks]
+        first = WSF.ShardedFusedStreamer(mesh, 2)
+        first.demodulate(blocks[0])
+        C.save_stream_state(os.path.join(tmp, "sh.npz"), first)
+        target = WSF.ShardedFusedStreamer(mesh, 2)
+        for b in blocks[::-1]:  # eager, then capture, then a graph replay
+            target.demodulate(b)
+        require(target.step_graph is not None, "the sharded streamer did not "
+                "capture its step")
+        C.load_stream_state(os.path.join(tmp, "sh.npz"), target)
+        ck["sharded_after_graph_replay"] = (
+            np.array_equal(target.demodulate(blocks[1]), exp[1])
+            and np.array_equal(target.demodulate(blocks[2]), exp[2]))
+        for name, ok in ck.items():
+            require(ok, f"checkpoint: {name} did not resume bit-equal")
+        out["checkpoint_bit_equal"] = ck
+        print(f"checkpoint on {dev}: {', '.join(ck)} resume bit-equal to an "
+              f"uninterrupted run (sharded: loaded into a streamer whose "
+              f"CUDA graph had replayed)", flush=True)
+
+        # ---- (g) simple_fm --mode fused --trace ------------------------------
+        path = os.path.join(tmp, "trace.u8")
+        u8_ck.tofile(path)
+        trace_dir = os.path.join(tmp, "trace")
+        run_cli("simple_fm", ["--file", path, "--mode", "fused", "--trace",
+                              trace_dir])
+        traces = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+        require(len(traces) == 1, f"--trace wrote {traces}")
+        with open(traces[0]) as f:
+            text = f.read()
+        named = {k: text.count(k) for k in ("fm_front", "fm_resample")}
+        require(all(named.values()), f"the trace names {named}")
+        out["trace"] = {"bytes": len(text), "names": named}
+        print(f"simple_fm --mode fused --trace: {os.path.basename(traces[0])}"
+              f", {len(text)} bytes, naming fm_front x{named['fm_front']}, "
+              f"fm_resample x{named['fm_resample']}", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1496,6 +1945,10 @@ def main(argv=None) -> int:
     # ---- the exact chain and the float chain's modes ----------------------
     md = modes(dev, u8, spec)
 
+    # ---- the receivers: stereo + RDS, rtl_fm, multi_fm --rds, rtl_power,
+    # checkpoint, trace ------------------------------------------------------
+    rx = receivers(dev, spec, smi)
+
     # ---- timing on the 25 MB block --------------------------------------
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     z_r = z_r.contiguous()
@@ -1606,6 +2059,7 @@ def main(argv=None) -> int:
         "batch": {k: v for k, v in bt.items() if k != "ms"},
         "parent_ratio": parent_ratio,
         "modes": md,
+        "receivers": rx,
     }), flush=True)
 
     # the A/B gate, held after every other phase has run

@@ -833,3 +833,186 @@ def test_cli_exact_and_boxcar_modes_on_the_card(capture, dev, tmp_path, mode):
         assert pcm["cuda"].tobytes() == pcm["cpu"].tobytes()
     else:
         assert np.abs(pcm["cuda"].astype(int) - pcm["cpu"]).max() <= 1
+
+
+# ---- stereo, RDS, the narrowband modes, the PSD, checkpoint, traces --------
+
+def _stereo_capture(n=510 * 400, seed=3):
+    bits = np.random.default_rng(seed).integers(0, 2, 600).astype(np.uint8)
+    u8, _, _ = synth.synth_wbfm_stereo_u8(n, capture_rate=1_020_000,
+                                          rds_bits=bits)
+    return np.asarray(u8, np.uint8)
+
+
+@pytest.mark.parametrize("kw", [{"emit_mpx": True},
+                                {"deemphasis_tau": 75e-6}])
+def test_stereo_on_the_card_matches_cpu(dev, kw):
+    from tpu_sdr_torch.models import wbfm_stereo as TS
+
+    u8 = _stereo_capture()
+    outs, mpx = {}, {}
+    for d in (dev, torch.device("cpu")):
+        st = TS.WbfmStereoStreamer(TS.StereoConfig(**kw), device=d)
+        outs[d.type] = np.concatenate([st.demodulate(u8[:100_001]),
+                                       st.demodulate(u8[100_001:])], axis=1)
+        mpx[d.type] = st.last_mpx
+    assert outs["cuda"].shape == outs["cpu"].shape == (2, 6400)
+    for ch in range(2):
+        assert _snr_db(outs["cpu"][ch], outs["cuda"][ch]) >= 100.0
+    if kw.get("emit_mpx"):
+        assert _snr_db(mpx["cpu"], mpx["cuda"]) >= 100.0
+
+
+def test_rds_on_the_card_matches_cpu(dev):
+    """The 340 kHz baseband (the stereo front's multiplex) on the card
+    against the CPU, and the same bits."""
+    from tpu_sdr_torch.models import rds as R
+    from tpu_sdr_torch.models import wbfm_stereo as TS
+
+    st = TS.WbfmStereoStreamer(TS.StereoConfig(emit_mpx=True),
+                               device=torch.device("cpu"))
+    st.demodulate(_stereo_capture(n=510 * 1200))
+    cfg = R.RdsConfig.for_mpx_rate(340_000)
+    bb, amp = {}, {}
+    for d in (dev, torch.device("cpu")):
+        rx = R.RdsReceiver(cfg, device=d)
+        bb[d.type] = np.concatenate([rx.process(st.last_mpx[:70_001]),
+                                     rx.process(st.last_mpx[70_001:])])
+        amp[d.type] = rx.pilot_amp
+    assert bb["cuda"].shape == bb["cpu"].shape
+    assert _snr_db(bb["cpu"], bb["cuda"]) >= 100.0
+    assert amp["cuda"] == pytest.approx(amp["cpu"], rel=1e-5)
+    np.testing.assert_array_equal(R.decode_bits(bb["cuda"]),
+                                  R.decode_bits(bb["cpu"]))
+
+
+@pytest.mark.parametrize("kw", [{"mode": "am"}, {"mode": "nbfm",
+                                                 "deemphasis_tau": 75e-6},
+                                {"mode": "usb", "fine_tune_hz": 300.0},
+                                {"mode": "lsb", "squelch_db": -40.0}])
+def test_multimode_on_the_card_matches_cpu(dev, kw):
+    from tpu_sdr_torch.models import multimode as TM
+
+    u8, _ = synth.synth_wbfm_u8(510 * 300, capture_rate=1_020_000,
+                                deviation=5_000.0, noise_std=0.05, seed=4)
+    u8 = np.asarray(u8, np.uint8)
+    outs, power = {}, {}
+    for d in (dev, torch.device("cpu")):
+        st = TM.MultimodeStreamer(TM.MultimodeConfig(**kw), device=d)
+        outs[d.type] = np.concatenate([st.demodulate(u8[:70_003]),
+                                       st.demodulate(u8[70_003:])])
+        power[d.type] = st.last_power
+    assert outs["cuda"].shape == outs["cpu"].shape
+    # the first 32 samples: the channel filter's start-up, where the
+    # discriminator's angle of ~0 is set by rounding alone
+    assert _snr_db(outs["cpu"][32:], outs["cuda"][32:]) >= 100.0
+    assert power["cuda"] == pytest.approx(power["cpu"], rel=1e-5)
+
+
+def test_psd_on_the_card_matches_cpu(dev):
+    from tpu_sdr_torch.ops import spectrum as SP
+
+    rng = np.random.default_rng(6)
+    buf = rng.integers(0, 256, 2 * 1024 * 50 + 333, dtype=np.uint8)
+    db = {}
+    for d in (dev, torch.device("cpu")):
+        ps = SP.PsdStreamer(1024, device=d)
+        ps.accumulate(buf[:9_999])
+        ps.accumulate(buf[9_999:])
+        assert ps.state.acc.device.type == d.type
+        db[d.type] = ps.finalize_db()
+    np.testing.assert_allclose(db["cuda"], db["cpu"], rtol=0, atol=0.01)
+
+
+@pytest.mark.parametrize("name", ["stereo", "multimode", "wideband_fused"])
+def test_checkpoint_on_the_card(dev, tmp_path, name):
+    """A card streamer's checkpoint resumes bit-identically on the card,
+    its tensors landing on the card."""
+    from tpu_sdr_torch.models import multimode as TM
+    from tpu_sdr_torch.models import wbfm_stereo as TS
+    from tpu_sdr_torch.stream import checkpoint as C
+
+    if name == "stereo":
+        def make():
+            return TS.WbfmStereoStreamer(TS.StereoConfig(emit_mpx=True),
+                                         device=dev)
+        data, split, axis = _stereo_capture(), 100_001, 1
+    elif name == "multimode":
+        def make():
+            return TM.MultimodeStreamer(TM.MultimodeConfig(mode="usb"),
+                                        device=dev)
+        data = np.random.default_rng(2).integers(0, 256, 510 * 300,
+                                                 dtype=np.uint8)
+        split, axis = 70_003, 0
+    else:
+        config = WB.WidebandConfig(num_channels=16, channels=(3, 12))
+
+        def make():
+            return WB.WidebandStreamer(config, use_fused=True, device=dev)
+        data = np.random.default_rng(3).integers(0, 256, 2 * 8 * 16 * 85 * 6,
+                                                 dtype=np.uint8)
+        split, axis = len(data) // 2 + 1_001, 1
+    ref = make()
+    full = np.concatenate([ref.demodulate(data[:split]),
+                           ref.demodulate(data[split:])], axis=axis)
+    first = make()
+    out1 = first.demodulate(data[:split])
+    path = str(tmp_path / "ck.npz")
+    C.save_stream_state(path, first)
+    resumed = make()
+    C.load_stream_state(path, resumed)
+    leaves = C._flatten(resumed.state)
+    assert all(x.device.type == "cuda" for x in leaves if torch.is_tensor(x))
+    got = np.concatenate([out1, resumed.demodulate(data[split:])], axis=axis)
+    np.testing.assert_array_equal(got, full)
+
+
+@pytest.mark.parametrize("when", ["before_graph", "after_graph"])
+def test_checkpoint_into_a_graphed_sharded_streamer(dev, tmp_path, when):
+    """``ShardedFusedStreamer`` on logical shards of one card: a checkpoint
+    taken after block 1 resumes block 2 bit-identically, loaded into a
+    fresh streamer (no graph yet) or into one whose captured graph already
+    replayed (its static carries must take the loaded ones)."""
+    from tpu_sdr_torch.parallel import mesh as PM
+    from tpu_sdr_torch.parallel import wbfm_sharded_fused as WSF
+    from tpu_sdr_torch.stream import checkpoint as C
+
+    mesh = PM.make_mesh(1, 2, devices=[dev] * 2)
+    rng = np.random.default_rng(17)
+    blocks = [rng.integers(0, 256, (2, 2 * CHUNK), dtype=np.uint8)
+              for _ in range(3)]
+    ref = WSF.ShardedFusedStreamer(mesh, 2)
+    exp = [ref.demodulate(b) for b in blocks]
+    first = WSF.ShardedFusedStreamer(mesh, 2)
+    first.demodulate(blocks[0])
+    path = str(tmp_path / "sharded.npz")
+    C.save_stream_state(path, first)
+    target = WSF.ShardedFusedStreamer(mesh, 2)
+    if when == "after_graph":
+        for b in blocks[::-1]:  # eager, then the graph, then a replay
+            target.demodulate(b)
+        assert target.step_graph is not None
+    C.load_stream_state(path, target)
+    np.testing.assert_array_equal(target.demodulate(blocks[1]), exp[1])
+    np.testing.assert_array_equal(target.demodulate(blocks[2]), exp[2])
+
+
+def test_trace_on_the_card_names_the_kernels(capture, dev, tmp_path):
+    import json
+
+    from tpu_sdr_torch.apps import simple_fm
+
+    path = tmp_path / "cap.u8"
+    np.tile(capture, 2).tofile(path)
+    raw, saved = io.BytesIO(), sys.stdout
+    sys.stdout = io.TextIOWrapper(raw, write_through=True)
+    try:
+        assert simple_fm.main(["--file", str(path), "--mode", "fused",
+                               "--trace", str(tmp_path / "tr")]) == 0
+    finally:
+        sys.stdout.detach()
+        sys.stdout = saved
+    (trace,) = (tmp_path / "tr").glob("*.pt.trace.json")
+    names = " ".join(e.get("name", "") for e in json.loads(
+        trace.read_text())["traceEvents"])
+    assert "fm_front" in names and "fm_resample" in names

@@ -222,3 +222,179 @@ def test_fake_dongle_through_both_apis():
     finally:
         jfake.clear_fake_devices()
         tfake.clear_fake_devices()
+
+
+# ---- the copies this slice added ------------------------------------------
+
+NEW_MODULES = ("tpu_sdr_torch.models.wbfm_stereo", "tpu_sdr_torch.models.rds",
+               "tpu_sdr_torch.models.multimode", "tpu_sdr_torch.ops.spectrum",
+               "tpu_sdr_torch.apps.rtl_fm", "tpu_sdr_torch.apps.rtl_power",
+               "tpu_sdr_torch.utils.units", "tpu_sdr_torch.stream.checkpoint")
+
+
+@pytest.mark.parametrize("name", NEW_MODULES)
+def test_new_module_imports_neither_tpu_sdr_nor_jax(name):
+    """Each module of the slice, alone in a fresh process."""
+    code = (f"import sys, importlib; importlib.import_module({name!r}); "
+            "bad = sorted(k for k in sys.modules "
+            "if k.split('.')[0] in ('tpu_sdr', 'jax')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, TPU_SDR_PLATFORM="cpu")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_parse_scaled_copy_is_equal():
+    from tpu_sdr.utils import units as junits
+    from tpu_sdr_torch.utils import units as tunits
+
+    for v in ("94.9M", "100k", "2048K", "1.5G", "4G", "0", "170000", "3m",
+              "1e3", "0.5k"):
+        assert tunits.parse_scaled(v) == junits.parse_scaled(v)
+    for bad in ("", "-1", "5G", "x", "12q"):
+        with pytest.raises(ValueError) as je:
+            junits.parse_scaled(bad)
+        with pytest.raises(ValueError) as te:
+            tunits.parse_scaled(bad)
+        assert str(te.value) == str(je.value)
+
+
+def test_synth_stereo_and_rds_copies_make_the_same_bytes():
+    from tpu_sdr.utils import synth as jsynth
+    from tpu_sdr_torch.utils import synth as tsynth
+
+    bits = np.random.default_rng(2).integers(0, 2, 300).astype(np.uint8)
+    for kw in ({}, {"rds_bits": bits, "left_freq": 500.0, "right_freq": 0.0}):
+        got, exp = (m.synth_wbfm_stereo_u8(51_000, capture_rate=1_020_000,
+                                           **kw) for m in (tsynth, jsynth))
+        for g, e in zip(got, exp):
+            np.testing.assert_array_equal(g, e)
+    args = (64 * 85 * 8, 16 * 170_000)
+    kw = dict(station_freqs=[3 * 170e3, -4 * 170e3], audio_freqs=[1e3, 2.5e3],
+              deviation=60_000.0, rds_bits=[bits, None])
+    np.testing.assert_array_equal(tsynth.synth_multistation_u8(*args, **kw)[0],
+                                  jsynth.synth_multistation_u8(*args, **kw)[0])
+
+
+def test_rds_group_layer_copy_is_equal():
+    from tpu_sdr.models import rds as JR
+    from tpu_sdr_torch.models import rds as TR
+
+    rng = np.random.default_rng(12)
+    for info in rng.integers(0, 1 << 16, 2_000):
+        assert TR.crc10(int(info)) == JR.crc10(int(info))
+    assert TR._burst_table() == JR._burst_table()
+    assert TR.OFFSET_WORDS == JR.OFFSET_WORDS and TR.PTY_NAMES == JR.PTY_NAMES
+    assert [TR.af_code_mhz(c) for c in range(256)] == [
+        JR.af_code_mhz(c) for c in range(256)]
+    for mjd in (15079, 45000, 51544, 61272, 70000):
+        assert TR.mjd_to_date(mjd) == JR.mjd_to_date(mjd)
+    makers = [("make_group_0a", (0xBEEF, 4, 2, "AB")),
+              ("make_group_0a", (0x1234, 31, 3, "yz", 0xE1CD)),
+              ("make_group_2a", (0xF201, 9, 7, "TEXT", 1)),
+              ("make_group_4a", (0x1234, 61272, 23, 59, -11, 5)),
+              ("make_group_10a", (0x1234, 1, "ball", 2, 1))]
+    groups = []
+    for name, args in makers:
+        g = getattr(TR, name)(*args)
+        np.testing.assert_array_equal(g, getattr(JR, name)(*args))
+        groups.append(g)
+    # random blocks, corrupted by bursts and single flips, against every offset
+    for _ in range(200):
+        off = rng.choice(list(JR.OFFSET_WORDS))
+        blk = JR.make_block(int(rng.integers(0, 1 << 16)), off)
+        for i in rng.integers(0, 26, rng.integers(0, 4)):
+            blk[i] ^= 1
+        for o in JR.OFFSET_WORDS:
+            assert TR.correct_block(blk, o) == JR.correct_block(blk, o)
+        assert TR._block_offset(blk) == JR._block_offset(blk)
+    # a noisy stream of the groups: the parser, the synchronizer, the text
+    bits = np.concatenate([rng.integers(0, 2, 41).astype(np.uint8)]
+                          + groups * 3)
+    bits[300] ^= 1
+    assert TR.sync_and_parse(bits) == JR.sync_and_parse(bits)
+    tsync, jsync = TR.GroupSynchronizer(), JR.GroupSynchronizer()
+    ttext, jtext = TR.RdsText(), JR.RdsText()
+    for chunk in np.array_split(bits, 7):
+        tg, jg = tsync.feed(chunk), jsync.feed(chunk)
+        assert tg == jg
+        for g in tg:
+            assert ttext.update(g) == jtext.update(g)
+    assert (tsync.groups_ok, tsync.groups_bad, tsync.bits_corrected) == (
+        jsync.groups_ok, jsync.groups_bad, jsync.bits_corrected)
+    b152 = rng.normal(0, 1, 128 * 40).astype(np.float32)
+    for ph in (0, 63, 127):
+        np.testing.assert_array_equal(TR.soft_bits(b152, ph),
+                                      JR.soft_bits(b152, ph))
+    assert TR.best_bit_phase(b152) == JR.best_bit_phase(b152)
+    np.testing.assert_array_equal(TR.decode_bits(b152), JR.decode_bits(b152))
+
+
+def test_psd_db_and_hann_copies_are_equal():
+    from tpu_sdr.ops import spectrum as JS
+    from tpu_sdr_torch.ops import spectrum as TS
+
+    for n in (8, 256, 1024):
+        np.testing.assert_array_equal(TS.hann(n), JS.hann(n))
+    rng = np.random.default_rng(1)
+    acc = rng.uniform(0, 1e4, 512).astype(np.float32)
+    acc[:3] = 0.0
+    for count in (0.0, 1.0, 37.0):
+        state = JS.PsdState(acc, np.float32(count))
+        np.testing.assert_array_equal(TS.psd_db(state, TS.hann(512)),
+                                      JS.psd_db(state, JS.hann(512)))
+
+
+def test_rtl_power_helpers_are_equal():
+    from tpu_sdr.apps import rtl_power as jrp
+    from tpu_sdr_torch.apps import rtl_power as trp
+
+    for text in ("88M:108M:125k", "94M:96M:8k", "100k:200k:1k"):
+        assert trp.parse_range(text) == jrp.parse_range(text)
+    for bad in ("88M:108M", "108M:88M:1k"):
+        with pytest.raises(SystemExit):
+            trp.parse_range(bad)
+    for rate, step in ((2_048_000, 125_000), (1_020_000, 8_000), (1, 1),
+                       (2_048_000, 1)):
+        assert trp.fft_size_for(rate, step) == jrp.fft_size_for(rate, step)
+    for args in ((88_000_000, 108_000_000, 2_048_000),
+                 (94_000_000, 96_040_000, 1_020_000, 1.0)):
+        assert trp.hop_centers(*args) == jrp.hop_centers(*args)
+    db = np.linspace(-90.0, -10.0, 1024)
+    for crop in (0.8, 1.0):
+        assert trp.row_for(95_000_000, 94_000_000, 96_000_000, 1_020_000,
+                           1024, db, crop) == jrp.row_for(
+            95_000_000, 94_000_000, 96_000_000, 1_020_000, 1024, db, crop)
+
+
+def _options(main, argv=("--help",)):
+    """The option strings of the argparse parser ``main`` builds."""
+    import argparse
+
+    seen = {}
+    real = argparse.ArgumentParser.parse_args
+
+    def grab(self, args=None, namespace=None):
+        seen["p"] = self
+        raise SystemExit(0)
+
+    argparse.ArgumentParser.parse_args = grab
+    try:
+        with pytest.raises(SystemExit):
+            main(list(argv))
+    finally:
+        argparse.ArgumentParser.parse_args = real
+    return {s for a in seen["p"]._actions for s in a.option_strings} | {
+        a.dest for a in seen["p"]._actions if not a.option_strings}
+
+
+@pytest.mark.parametrize("app", ["simple_fm", "multi_fm", "rtl_fm",
+                                 "rtl_power"])
+def test_cli_options_are_the_jax_clis_plus_torch_device(app):
+    import importlib
+
+    jax_opts = _options(importlib.import_module(f"tpu_sdr.apps.{app}").main)
+    port = _options(importlib.import_module(f"tpu_sdr_torch.apps.{app}").main)
+    extra = {"--torch-device"} | ({"--fused"} if app == "multi_fm" else set())
+    assert port == jax_opts | extra

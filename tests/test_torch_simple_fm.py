@@ -71,19 +71,25 @@ def test_cli_fused_agrees_with_fir(capture_file, capsysbinary):
                                    ["--rds"], ["--deemph", "75"]])
 def test_cli_unported_options_exit_with_usage_error(capture_file,
                                                     capsysbinary, extra):
-    """``--mode stereo`` and ``--rds`` are still refused (exit 2, naming the
-    JAX CLI); ``--mode exact`` and ``--deemph``, refused until they were
-    ported, now write audio."""
+    """Every option once refused is ported: ``--mode exact`` and
+    ``--deemph`` write mono audio, ``--mode stereo`` interleaved L/R (two
+    s16 a sample); ``--rds`` without ``--mode stereo`` is the JAX CLI's
+    usage error (exit 2, its message)."""
     argv = ["--file", capture_file, "--torch-device", "cpu", *extra]
-    if extra in (["--mode", "stereo"], ["--rds"]):
+    if extra == ["--rds"]:
         with pytest.raises(SystemExit) as exc:
             simple_fm.main(argv)
         assert exc.value.code == 2
-        assert "tpu_sdr.apps.simple_fm" in capsysbinary.readouterr().err.decode()
+        assert ("--rds requires --mode stereo here (for mono use rtl_fm "
+                "--rds)") in capsysbinary.readouterr().err.decode()
         return
     pcm = _run(argv, capsysbinary)
     n_complex = os.path.getsize(capture_file) // 2
-    assert abs(len(pcm) - n_complex * 16 // (6 * 85)) <= 2048
+    channels = 2 if "stereo" in extra else 1
+    assert abs(len(pcm) - channels * n_complex * 16 // (6 * 85)) <= 2048
+    if channels == 2:  # a mono capture: the tone in L (no pilot, no L-R)
+        assert synth.tone_snr(pcm[0::2].astype(float), 1_000.0, 32_000,
+                              skip=1500) >= 40.0
 
 
 def test_cli_deemph_needs_a_float_chain(capture_file):
@@ -216,3 +222,61 @@ def test_cli_rtl_tcp_source_from_the_jax_server(capsysbinary):
         sdr.close()
         fake.clear_fake_devices()
     assert snr > 20, f"tone lost over the tcp path: {snr:.1f} dB"
+
+
+def _stereo_rds_file(tmp_path, pi, ps):
+    from tpu_sdr_torch.models import rds as R
+
+    groups = [R.make_group_0a(pi, 10, seg, ps[2 * seg: 2 * seg + 2])
+              for seg in range(4)]
+    bits = np.concatenate([np.concatenate(groups)] * 4)
+    n = int(np.ceil((len(bits) + 120) / 1187.5 * 1_020_000))
+    n -= n % (6 * 85)
+    u8, _, _ = synth.synth_wbfm_stereo_u8(n, capture_rate=1_020_000,
+                                          rds_bits=bits)
+    path = tmp_path / "st_rds.bin"
+    path.write_bytes(bytes(u8))
+    return str(path)
+
+
+def test_cli_stereo_rds_matches_the_jax_cli(tmp_path, capsysbinary):
+    """``--mode stereo --rds``: interleaved L/R within 80 dB of the JAX
+    CLI's s16 (its front split-bf16, the port's f32), and the same
+    ``[rds]`` lines on stderr."""
+    pi, ps = 0xD00D, "STEREO+R"
+    args = ["--file", _stereo_rds_file(tmp_path, pi, ps), "--mode", "stereo",
+            "--rds"]
+    assert simple_fm.main(args + ["--torch-device", "cpu"]) == 0
+    cap = capsysbinary.readouterr()
+    got, got_err = np.frombuffer(cap.out, dtype="<i2"), cap.err.decode()
+    from tpu_sdr.apps import simple_fm as jsimple
+
+    assert jsimple.main(args) == 0
+    cap = capsysbinary.readouterr()
+    exp = np.frombuffer(cap.out, dtype="<i2")
+    assert got.shape == exp.shape and len(got) > 20_000
+    err = got.astype(float) - exp
+    assert 10 * np.log10(np.mean(exp.astype(float) ** 2)
+                         / max(np.mean(err ** 2), 1e-30)) >= 80.0
+    assert synth.tone_snr(got[0::2].astype(float), 800.0, 32_000,
+                          skip=2000) > 30
+    rds = [ln for ln in got_err.splitlines() if ln.startswith("[rds]")]
+    assert rds == [ln for ln in cap.err.decode().splitlines()
+                   if ln.startswith("[rds]")]
+    assert f"[rds] PI: {pi:04X}" in rds and f"[rds] PS: '{ps}'" in rds
+
+
+def test_cli_trace_writes_a_chrome_trace(capture_file, tmp_path, capsysbinary):
+    """``--trace DIR``: one ``torch.profiler`` Chrome trace in DIR naming
+    the run's operations (on the card, also the kernels)."""
+    import json
+
+    out = tmp_path / "trace"
+    pcm = _run(["--file", capture_file, "--mode", "fused", "--torch-device",
+                "cpu", "--trace", str(out)], capsysbinary)
+    assert len(pcm) > 0
+    files = list(out.glob("*.pt.trace.json"))
+    assert len(files) == 1
+    names = {e.get("name", "") for e in json.loads(files[0].read_text())[
+        "traceEvents"]}
+    assert any(n.startswith("aten::") for n in names)

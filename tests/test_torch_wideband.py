@@ -30,6 +30,7 @@ from tpu_sdr_torch.apps import multi_fm
 from tpu_sdr_torch.models import wbfm_wideband as WB
 from tpu_sdr_torch.ops import fm as TF
 from tpu_sdr_torch.ops import fused_channelizer as FC
+from tpu_sdr_torch.utils import synth as tsynth
 
 torch.set_num_threads(1)
 
@@ -236,10 +237,34 @@ def test_cli_single_channel_streams_to_stdout(capture_file, capsysbinary):
                           skip=400) >= 25.0
 
 
-def test_cli_refuses_rds(capture_file):
-    with pytest.raises(SystemExit) as exc:
-        multi_fm.main(["--file", capture_file, "--rds", "--torch-device", "cpu"])
-    assert exc.value.code == 2
+def test_cli_refuses_rds(tmp_path, capsys):
+    """``--rds``, once refused, decodes every station's multiplex: the
+    station carrying RDS prints its PI and PS on ``[rds ch<N>]`` lines,
+    through either front, and the other stays silent."""
+    from tpu_sdr_torch.models import rds as R
+
+    pi, ps = 0xC0DE, "WIDEBAND"
+    groups = [R.make_group_0a(pi, 7, seg, ps[2 * seg: 2 * seg + 2])
+              for seg in range(4)]
+    bits = np.concatenate([np.concatenate(groups)] * 4)
+    K, ch_rate = 16, 170_000
+    n = int(np.ceil((len(bits) + 120) / 1187.5 * K * ch_rate))
+    n -= n % (16 * K * 85)
+    u8, _ = tsynth.synth_multistation_u8(
+        n, K * ch_rate, station_freqs=[3 * ch_rate, -4 * ch_rate],
+        audio_freqs=[1000.0, 2500.0], deviation=60_000.0,
+        rds_bits=[bits, None])
+    path = tmp_path / "wb_rds.bin"
+    path.write_bytes(bytes(u8))
+    for front in ([], ["--fused"]):
+        assert multi_fm.main(["--file", str(path), "--channels", f"3,{K - 4}",
+                              "--num-channels", str(K), "--rds",
+                              "--torch-device", "cpu", "--out-dir",
+                              str(tmp_path / "out")] + front) == 0
+        err = capsys.readouterr().err
+        assert f"[rds ch3] PI: {pi:04X}" in err
+        assert f"[rds ch3] PS: '{ps}'" in err
+        assert f"ch{K - 4}]" not in err
 
 
 def test_cli_requires_cuda_by_default(capture_file, monkeypatch):

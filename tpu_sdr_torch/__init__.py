@@ -14,8 +14,13 @@ chain (``models.wbfm``) and as the fused two-kernel chain
 (``ops.fused_fm``), behind ``python -m tpu_sdr_torch.apps.simple_fm``; and
 the wideband multi-station path (``models.wbfm_wideband``) with the plain
 or the K3 channelizer (``ops.channelizer``, ``ops.fused_channelizer``),
-behind ``python -m tpu_sdr_torch.apps.multi_fm``; and the sharded (dp, sp)
-receive chains with the K4/K5 halo exchange (``parallel``).
+behind ``python -m tpu_sdr_torch.apps.multi_fm``; the sharded (dp, sp)
+receive chains with the K4/K5 halo exchange (``parallel``); the stereo
+decoder and RDS (``models.wbfm_stereo``, ``models.rds``; ``simple_fm
+--mode stereo --rds``, ``multi_fm --rds``); the AM/NBFM/SSB receiver
+(``models.multimode``, ``apps.rtl_fm``); the spectrum scanner
+(``ops.spectrum``, ``apps.rtl_power``); checkpoint/resume
+(``stream.checkpoint``) and traces (``utils.profiling.trace``).
 """
 
 DEFAULT_BUF_LENGTH = 16 * 16384  # bytes per sync-read block (ref src/lib.rs:25)

@@ -11,6 +11,8 @@ as one batch on the device (``models.wbfm_wideband``).  Fronts:
 
 Each station's 32 kHz s16 audio is written to ``<out-dir>/station_<ch>.raw``;
 with a single channel and no ``--out-dir`` the audio streams to stdout.
+``--rds`` runs an RDS receiver on every selected station's multiplex,
+printing ``[rds ch<N>] PI/PS/RT`` lines to stderr.
 The GPU is required: without one the CLI raises, unless ``--torch-device
 cpu`` asks for the plain PyTorch versions on the CPU.
 
@@ -45,10 +47,10 @@ def main(argv=None) -> int:
     p.add_argument("--torch-device", default="cuda",
                    help="where to demodulate: cuda (default; raises without "
                         "a GPU), cuda:N, or cpu for the plain PyTorch versions")
-    p.add_argument("--rds", action="store_true", help="RDS (not ported yet)")
+    p.add_argument("--rds", action="store_true",
+                   help="decode RDS on every station; [rds ch<N>] lines "
+                        "go to stderr")
     args = p.parse_args(argv)
-    if args.rds:
-        p.error("--rds is not ported yet; use python -m tpu_sdr.apps.multi_fm")
 
     import torch
 
@@ -60,8 +62,13 @@ def main(argv=None) -> int:
     device = resolve_device(args.torch_device)
     channels = tuple(int(c) for c in args.channels.split(","))
     config = wb.WidebandConfig(num_channels=args.num_channels,
-                               channels=channels)
+                               channels=channels, emit_mpx=args.rds)
     streamer = wb.WidebandStreamer(config, use_fused=args.fused, device=device)
+    rds_rxs = None
+    if args.rds:
+        from tpu_sdr_torch.models import rds as rds_mod
+
+        rds_rxs = [rds_mod.RdsStreamDecoder(device=device) for _ in channels]
     desc = "fused K3 front" if args.fused else "plain front"
     if device.type == "cuda":
         desc += f" on {torch.cuda.get_device_name(device)}"
@@ -94,6 +101,11 @@ def main(argv=None) -> int:
                         sys.stdout.buffer.write(pcm.tobytes())
                     else:
                         sinks[s].write(pcm.tobytes())
+                if rds_rxs is not None:
+                    for s, ch in enumerate(channels):
+                        for event in rds_rxs[s].feed_mpx(streamer.last_mpx[s]):
+                            print(f"[rds ch{ch}] {event}", file=sys.stderr,
+                                  flush=True)
     finally:
         for s in sinks:
             s.close()

@@ -14,8 +14,13 @@ plane ``api``), and demodulates on a CUDA device:
   fused  the two hand-written CUDA kernels (fm_front -> fm_resample);
          ``--mode pallas``, the JAX CLI's name for its kernel chain, is
          the same mode
+  stereo the pilot-tone stereo decoder on a 340 kHz front end ->
+         interleaved L/R s16 (play with -c 2)
 
-``--deemph US`` adds de-emphasis to the fir and boxcar chains.
+``--deemph US`` adds de-emphasis to the fir, boxcar and stereo chains.
+``--rds`` (stereo mode) also decodes the Radio Data System from the same
+multiplex and prints PI/PS/RadioText lines to stderr.  ``--trace DIR``
+writes a ``torch.profiler`` trace of the run into DIR.
 
 The GPU is required: without one the CLI raises, unless ``--torch-device
 cpu`` asks for the plain PyTorch versions on the CPU.
@@ -39,18 +44,20 @@ log = logging.getLogger("simple_fm")
 FREQUENCY = 94_900_000  # Hz (ref simple_fm.rs:25)
 SAMPLE_RATE = 170_000  # demod rate (ref simple_fm.rs:26)
 
-PORTED_MODES = ("exact", "boxcar", "fir", "fused")
+MODES = ("exact", "boxcar", "fir", "fused", "stereo")
 MODE_ALIASES = {"pallas": "fused"}  # the JAX CLI's spellings
-UNPORTED_MODES = ("stereo",)
-DEEMPH_MODES = ("fir", "boxcar")
+DEEMPH_MODES = ("fir", "boxcar", "stereo")
 
 
-def make_demodulator(mode: str, device, deemph_us: float = 0.0):
+def make_demodulator(mode: str, device, deemph_us: float = 0.0,
+                     rds: bool = False):
     """Return (demod_fn(u8 block) -> np s16 audio, description)."""
     import torch
 
     from tpu_sdr_torch.native import f32_to_s16
 
+    if mode == "stereo":
+        return _stereo_demodulator(device, deemph_us, rds)
     if mode == "exact":
         from tpu_sdr_torch.models.wbfm_exact import WbfmExactStreamer
 
@@ -81,6 +88,37 @@ def make_demodulator(mode: str, device, deemph_us: float = 0.0):
     def demod(buf):
         return f32_to_s16(streamer.demodulate(buf))
 
+    return demod, f"{desc}, {device}"
+
+
+def _stereo_demodulator(device, deemph_us: float, rds: bool):
+    import torch
+
+    from tpu_sdr_torch.models import rds as rds_mod
+    from tpu_sdr_torch.models.wbfm_stereo import (StereoConfig,
+                                                  WbfmStereoStreamer)
+    from tpu_sdr_torch.native import f32_to_s16
+
+    config = StereoConfig(emit_mpx=rds, deemphasis_tau=deemph_us * 1e-6)
+    streamer = WbfmStereoStreamer(config, device=device)
+    # the stereo front is wideband (a 340 kHz multiplex): the RDS
+    # decoder's filters are designed for that rate
+    rds_rx = (rds_mod.RdsStreamDecoder(
+        rds_mod.RdsConfig.for_mpx_rate(config.base.rate_out), device=device)
+        if rds else None)
+
+    def demod(buf):
+        audio = streamer.demodulate(buf)  # (2, m)
+        if rds_rx is not None:
+            for event in rds_rx.feed_mpx(streamer.last_mpx):
+                print(f"[rds] {event}", file=sys.stderr, flush=True)
+        return f32_to_s16(audio.T.reshape(-1))  # interleaved L/R s16
+
+    desc = "stereo multiplex decoder (pilot-tone)" + (" + RDS" if rds else "")
+    if deemph_us:
+        desc += f", {deemph_us:.0f}us de-emphasis"
+    if device.type == "cuda":
+        desc += f" on {torch.cuda.get_device_name(device)}"
     return demod, f"{desc}, {device}"
 
 
@@ -133,43 +171,45 @@ def main(argv=None) -> int:
                    help="stream from a remote rtl_tcp server instead of a "
                         "local device (tunes it to --freq)")
     p.add_argument("--device", type=int, default=0, help="dongle index")
-    p.add_argument("--mode", choices=(*PORTED_MODES, *MODE_ALIASES,
-                                      *UNPORTED_MODES),
-                   default="fir",
-                   help="exact (integer), boxcar, fir (plain PyTorch) or "
-                        "fused (the CUDA kernels); pallas is the JAX CLI's "
-                        "name for fused")
+    p.add_argument("--mode", choices=(*MODES, *MODE_ALIASES), default="fir",
+                   help="exact (integer), boxcar, fir (plain PyTorch), "
+                        "fused (the CUDA kernels) or stereo; pallas is the "
+                        "JAX CLI's name for fused")
     p.add_argument("--torch-device", default="cuda",
                    help="where to demodulate: cuda (default; raises without "
                         "a GPU), cuda:N, or cpu for the plain PyTorch versions")
+    p.add_argument("--trace", default=None, metavar="DIR",
+                   help="write a torch.profiler trace to DIR")
     p.add_argument("--deemph", type=float, default=0.0, metavar="US",
                    help="de-emphasis time constant in microseconds (75 US / "
-                        "50 EU; fir and boxcar modes)")
-    p.add_argument("--rds", action="store_true", help="RDS (not ported yet)")
+                        "50 EU; fir, boxcar and stereo modes)")
+    p.add_argument("--rds", action="store_true",
+                   help="decode RDS alongside the audio (stereo mode); "
+                        "PI/PS/RadioText lines go to stderr")
     p.add_argument("--blocks", type=int, default=0,
                    help="stop after N blocks (device/tcp modes; 0 = run "
                         "until interrupted)")
     args = p.parse_args(argv)
     args.mode = MODE_ALIASES.get(args.mode, args.mode)
-    if args.mode in UNPORTED_MODES:
-        p.error(f"--mode {args.mode} is not ported yet (ported: "
-                f"{', '.join(PORTED_MODES)}); use python -m "
-                "tpu_sdr.apps.simple_fm")
-    if args.rds:
-        p.error("--rds is not ported yet; use python -m tpu_sdr.apps.simple_fm")
+    if args.rds and args.mode != "stereo":
+        p.error("--rds requires --mode stereo here (for mono use "
+                "rtl_fm --rds)")
     if args.deemph and args.mode not in DEEMPH_MODES:
-        p.error(f"--deemph applies to --mode {' and '.join(DEEMPH_MODES)}")
+        p.error(f"--deemph applies to --mode {', '.join(DEEMPH_MODES)}")
 
     from tpu_sdr_torch.device import resolve_device
     from tpu_sdr_torch.utils.design import optimal_settings
+    from tpu_sdr_torch.utils.profiling import trace
 
     device = resolve_device(args.torch_device)
     radio, _demod_cfg = optimal_settings(args.freq, SAMPLE_RATE)
-    demod, desc = make_demodulator(args.mode, device, args.deemph)
+    demod, desc = make_demodulator(args.mode, device, args.deemph,
+                                   rds=args.rds)
     log.info("Demodulating with %s", desc)
 
     if args.file:
-        run_file(args.file, demod)
+        with trace(args.trace):
+            run_file(args.file, demod)
         return 0
 
     from tpu_sdr_torch.stream.feeder import BlockFeeder
@@ -202,7 +242,8 @@ def main(argv=None) -> int:
     feeder = BlockFeeder(src, block_bytes=DEFAULT_BUF_LENGTH,
                          queue_blocks=16).start()
     try:
-        process_loop(demod, feeder, shutdown, args.blocks)
+        with trace(args.trace):
+            process_loop(demod, feeder, shutdown, args.blocks)
     except KeyboardInterrupt:
         shutdown.set()
     finally:

@@ -17,6 +17,13 @@ the two), the stacked discriminator and resampler states keep their
 station axis, and the weights come from the JAX ``WidebandParams`` (K3's
 tap table is its ``h_poly``) and the Pallas ``(M2_hi, M2_lo)`` pair.
 
+The stereo decoder's eleven carries, RDS's four, the narrowband modes'
+nine and the PSD accumulator convert field for field (the fs/4 phase, the
+SSB phase indices and the segment count as ints); their weights convert
+from the JAX params, a split-bf16 decimator (the narrowband front's
+always, the stereo front's by default) as its effective f32 weights
+``255 * (W_hi + W_lo)``.
+
 The sharded chains' streaming carries keep the JAX shapes: the fused
 chain's ``(kernel_edge (stations, 4, 128), rs_edge (stations, T-1))`` and
 the float chain's ``XlaStreamCarry``; a ``ShardedPallasStreamer`` hands its
@@ -30,13 +37,17 @@ import dataclasses
 import numpy as np
 import torch
 
+from tpu_sdr_torch.models import multimode as MM
+from tpu_sdr_torch.models import rds as R
 from tpu_sdr_torch.models import wbfm as M
 from tpu_sdr_torch.models import wbfm_exact as WE
+from tpu_sdr_torch.models import wbfm_stereo as ST
 from tpu_sdr_torch.models import wbfm_wideband as WB
 from tpu_sdr_torch.ops import channelizer as chan
 from tpu_sdr_torch.ops import exact as X
 from tpu_sdr_torch.ops import fm as F
 from tpu_sdr_torch.ops import fused_channelizer as FC
+from tpu_sdr_torch.ops import spectrum as SP
 from tpu_sdr_torch.ops.fused_fm import FusedWbfmSpec, effective_taps
 from tpu_sdr_torch.parallel.mesh import Mesh
 from tpu_sdr_torch.parallel.wbfm_sharded import XlaStreamCarry
@@ -262,3 +273,139 @@ def sharded_streamer_to_jax(streamer: ShardedFusedStreamer
     """A ``ShardedFusedStreamer``'s ``(states, resamp_hists)`` as numpy, to
     assign to a ``ShardedPallasStreamer`` of the same stations."""
     return sharded_carry_to_jax(streamer.states, streamer.resamp_hists)
+
+
+# ---- the stereo decoder, RDS, the narrowband modes and the PSD ------------
+
+def _decim_weights(params) -> torch.Tensor:
+    """A JAX front's decimator (``WbfmParams``, ``MultimodeParams``) as the
+    f32 weights it applies: the split-bf16 pair as ``255 * (W_hi + W_lo)``
+    (the TPU scales the frames by 255 before its bf16 matmuls), else the
+    f32 ``decim_W``."""
+    if params.decim_W_split is not None:
+        return 255.0 * split_bf16_sum(*params.decim_W_split)
+    return _tensor(params.decim_W, "cpu")
+
+
+def _fir(state, device) -> F.FirState:
+    return F.FirState(_tensor(state.hist_re, device),
+                      _tensor(state.hist_im, device))
+
+
+def _fir_to_jax(state: F.FirState):
+    return (state.hist_re.cpu().numpy(), state.hist_im.cpu().numpy())
+
+
+def stereo_params_from_jax(params, config: ST.StereoConfig, *,
+                           device: str | torch.device) -> ST.StereoParams:
+    """A JAX ``StereoParams`` -> the port's for ``config``: the front's
+    decimator as its effective f32 weights, its resampler banks and the
+    four banded filters."""
+    port = ST.make_params(config, device=device)
+    port.front.decim_W = _decim_weights(params.front).to(device)
+    port.front.resamp_poly = _tensor(params.front.resamp_poly, device)
+    port.front.resamp_V = _tensor(params.front.resamp_V, device)
+    port.front.box_V = _tensor(params.front.box_V, device)
+    for name in ("W_s", "W_p", "W_c", "W_d"):
+        setattr(port, name, _tensor(getattr(params, name), device))
+    return port
+
+
+def stereo_state_from_jax(state, *, device: str | torch.device
+                          ) -> ST.StereoState:
+    """A JAX ``StereoState`` (all eleven carries) -> the port's."""
+    return ST.StereoState(
+        wbfm_state_from_jax(state.front, device=device),
+        *(_fir(s, device) for s in (state.lpf_s, state.bpf_p, state.bpf_c,
+                                    state.lpf_d)),
+        F.DelayState(_tensor(state.dly_y.hist, device)),
+        F.DelayState(_tensor(state.dly_s.hist, device)),
+        F.DeemphState(_tensor(state.de_l.y_prev, device)),
+        F.DeemphState(_tensor(state.de_r.y_prev, device)),
+        F.AlignedResampleState(_tensor(state.rs_l.hist, device)),
+        F.AlignedResampleState(_tensor(state.rs_r.hist, device)))
+
+
+def stereo_state_to_jax(state: ST.StereoState):
+    """The port's ``StereoState`` -> numpy nested as the JAX one's fields."""
+    def n(x):
+        return x.cpu().numpy()
+
+    return (wbfm_state_to_jax(state.front),
+            *(_fir_to_jax(s) for s in (state.lpf_s, state.bpf_p, state.bpf_c,
+                                       state.lpf_d)),
+            (n(state.dly_y.hist),), (n(state.dly_s.hist),),
+            (n(state.de_l.y_prev),), (n(state.de_r.y_prev),),
+            (n(state.rs_l.hist),), (n(state.rs_r.hist),))
+
+
+def rds_params_from_jax(params, config: R.RdsConfig, *,
+                        device: str | torch.device) -> R.RdsParams:
+    """A JAX ``RdsParams`` -> the port's for ``config``."""
+    port = R.make_params(config, device=device)
+    for name in ("W_p", "W_s", "W_lp", "resamp_V"):
+        setattr(port, name, _tensor(getattr(params, name), device))
+    return port
+
+
+def rds_state_from_jax(state, *, device: str | torch.device) -> R.RdsState:
+    return R.RdsState(_fir(state.bpf_p, device), _fir(state.bpf_s, device),
+                      _fir(state.lpf, device),
+                      F.AlignedResampleState(_tensor(state.resamp.hist,
+                                                     device)))
+
+
+def rds_state_to_jax(state: R.RdsState):
+    return (_fir_to_jax(state.bpf_p), _fir_to_jax(state.bpf_s),
+            _fir_to_jax(state.lpf), (state.resamp.hist.cpu().numpy(),))
+
+
+def multimode_params_from_jax(params, config: MM.MultimodeConfig, *,
+                              device: str | torch.device
+                              ) -> MM.MultimodeParams:
+    """A JAX ``MultimodeParams`` -> the port's for ``config``: the
+    split-bf16 decimator the JAX front always runs, as its effective f32
+    weights ``255 * (W_hi + W_lo)``."""
+    port = MM.make_params(config, device=device)
+    port.decim_W = _decim_weights(params).to(device)
+    port.chan_W = _tensor(params.chan_W, device)
+    port.resamp_V = _tensor(params.resamp_V, device)
+    return port
+
+
+def multimode_state_from_jax(state, *, device: str | torch.device
+                             ) -> MM.MultimodeState:
+    """A JAX ``MultimodeState`` (all nine carries) -> the port's; the fs/4
+    phase and the SSB phase indices become ints."""
+    return MM.MultimodeState(
+        int(np.asarray(state.rot.phase)), _fir(state.fir, device),
+        _fir(state.chan, device),
+        F.QuadState(_tensor(state.quad.pre_re, device),
+                    _tensor(state.quad.pre_im, device)),
+        F.AlignedResampleState(_tensor(state.resamp.hist, device)),
+        F.AlignedResampleState(_tensor(state.resamp_q.hist, device)),
+        int(np.asarray(state.ssb_phase)), int(np.asarray(state.ssb_phase2)),
+        F.DeemphState(_tensor(state.deemph.y_prev, device)))
+
+
+def multimode_state_to_jax(state: MM.MultimodeState):
+    """The port's ``MultimodeState`` -> numpy nested as the JAX one's
+    fields, the ints as int32."""
+    def n(x):
+        return x.cpu().numpy()
+
+    return ((np.int32(state.rot),), _fir_to_jax(state.fir),
+            _fir_to_jax(state.chan), (n(state.quad.pre_re),
+                                      n(state.quad.pre_im)),
+            (n(state.resamp.hist),), (n(state.resamp_q.hist),),
+            np.int32(state.ssb_phase), np.int32(state.ssb_phase2),
+            (n(state.deemph.y_prev),))
+
+
+def psd_state_from_jax(state, *, device: str | torch.device) -> SP.PsdState:
+    """A JAX ``PsdState`` -> the port's (the segment count an int)."""
+    return SP.PsdState(_tensor(state.acc, device), int(np.asarray(state.count)))
+
+
+def psd_state_to_jax(state: SP.PsdState) -> tuple[np.ndarray, np.float32]:
+    return state.acc.cpu().numpy(), np.float32(state.count)

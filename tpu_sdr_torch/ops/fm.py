@@ -13,7 +13,9 @@ axes:
 * the phase-aligned frame-matmul resampler (the polyphase bank or the
   boxcar window), and the unaligned ones: the polyphase resampler with its
   output phase ``t0`` and the boxcar resampler with its index carry,
-* single-pole de-emphasis as a log-depth scan.
+* single-pole de-emphasis as a log-depth scan,
+* the decim-1 FIR of one real signal and the integer delay line of the
+  stereo and RDS decoders.
 
 These are the port's executable specification: the float chain
 (``models.wbfm``) is built from them, and ``aligned_resample`` is the plain
@@ -105,6 +107,39 @@ def fir_decimate_mxu(re: torch.Tensor, im: torch.Tensor, W: torch.Tensor,
     y = banded_decim_apply(x.reshape(-1, x.shape[-1]), W, decim, n // decim,
                            chunk_out).reshape(*x.shape[:-1], -1)
     return y[0], y[1], FirState(xr[..., n:], xi[..., n:])
+
+
+def fir_filter_mxu(x: torch.Tensor, W: torch.Tensor, state: FirState,
+                   chunk_out: int = 128):
+    """Streaming decim-1 FIR of a real signal as chunked banded matmuls:
+    the JAX ``_fir1`` of the stereo and RDS models, which run the complex
+    pair with a zero second row.  Only the real row is computed; the
+    state's ``hist_im`` (all zeros there) is carried as it is.  Returns
+    (y, new_state)."""
+    n = x.shape[-1]
+    xr = torch.cat([state.hist_re, x], dim=-1)
+    y = banded_decim_apply(xr.reshape(-1, xr.shape[-1]), W, 1, n,
+                           chunk_out).reshape(*xr.shape[:-1], n)
+    return y, FirState(xr[..., n:], state.hist_im)
+
+
+class DelayState(NamedTuple):
+    """Last ``D`` samples: a streaming integer delay line."""
+
+    hist: torch.Tensor
+
+
+def delay_init(d: int, device: torch.device) -> DelayState:
+    return DelayState(torch.zeros(d, dtype=torch.float32, device=device))
+
+
+def delay(x: torch.Tensor, state: DelayState):
+    """``out[k] = x[k - D]`` along the last axis, across block boundaries
+    (the group-delay match of a multi-arm filter graph).  Returns (out,
+    new_state)."""
+    d = state.hist.shape[-1]
+    xx = torch.cat([state.hist, x], dim=-1)
+    return xx[..., :x.shape[-1]], DelayState(xx[..., xx.shape[-1] - d:])
 
 
 def boxcar_decimate_f32(re: torch.Tensor, im: torch.Tensor, decim: int

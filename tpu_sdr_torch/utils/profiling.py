@@ -1,10 +1,13 @@
-"""Per-block throughput metrics — the port's copy of ``BlockStats`` from
-``tpu_sdr/utils/profiling.py`` (its ``jax.profiler`` helpers are left out).
+"""Tracing and per-block throughput metrics — the counterpart of
+``tpu_sdr/utils/profiling.py``.
 
 The reference's only instrumentation is a per-block wall-clock average in
 the demod thread plus a buffer-latency log line (simple_fm.rs:101-104,
-143-168); :class:`BlockStats` is a running samples/s / latency meter with
-the same running-average semantics.
+143-168).  Here: (a) :class:`BlockStats`, a copy of the JAX package's
+running samples/s / latency meter with the same running-average
+semantics, and (b) :func:`trace` and :func:`annotate` on
+``torch.profiler`` (where the JAX package uses ``jax.profiler``): a host
+and device trace of any streaming run, written as a Chrome trace.
 """
 
 from __future__ import annotations
@@ -12,6 +15,8 @@ from __future__ import annotations
 import contextlib
 import time
 from dataclasses import dataclass, field
+
+import torch
 
 
 @dataclass
@@ -66,3 +71,30 @@ class BlockStats:
             f"({self.wall_samples_per_sec / 1e6:.2f} Msps wall), "
             f"{self.dropped_blocks} dropped"
         )
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | None):
+    """Host + device trace via ``torch.profiler`` (the CPU activity, and
+    the CUDA activity where a GPU is present), written on exit as a Chrome
+    trace ``*.pt.trace.json`` into ``log_dir`` (view with Perfetto,
+    chrome://tracing or TensorBoard's profiler plugin).  A no-op when
+    ``log_dir`` is falsy."""
+    if not log_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield
+
+
+@contextlib.contextmanager
+def annotate(name: str):
+    """Named region in the trace (``torch.profiler.record_function``)."""
+    with torch.profiler.record_function(name):
+        yield

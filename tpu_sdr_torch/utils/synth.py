@@ -1,9 +1,10 @@
 """Synthetic WBFM captures and the tone SNR that scores them (numpy only),
-the counterpart of the mono parts of ``tpu_sdr/utils/synth.py`` with the
-same arithmetic, so that both packages make the same bytes.
+the counterpart of ``tpu_sdr/utils/synth.py`` with the same arithmetic,
+so that both packages make the same bytes.
 
-A known audio tone is FM-modulated, offset (or placed in a wideband
-capture) and quantized to interleaved u8 I/Q, as an RTL-SDR delivers it.
+A known audio tone (or a stereo multiplex, with an RDS subcarrier when
+bits are given) is FM-modulated, offset (or placed in a wideband capture)
+and quantized to interleaved u8 I/Q, as an RTL-SDR delivers it.
 ``snr_db`` and ``align_and_snr`` score one chain's audio against
 another's (the boxcar chain against the exact one).
 """
@@ -41,28 +42,75 @@ def synth_wbfm_u8(num_samples: int, capture_rate: float = 1_020_000.0,
     return _to_u8(sig), audio
 
 
+def _rds_sign(t: np.ndarray, bits) -> np.ndarray:
+    """The RDS subcarrier's +-1 symbol at times ``t``: the bits
+    differentially encoded, each bit a biphase pair at the pilot-locked
+    1187.5 bit/s clock."""
+    b = np.asarray(bits, np.uint8)
+    d = np.bitwise_xor.accumulate(b)
+    tb = t * 1187.5
+    k = np.minimum(tb.astype(int), len(b) - 1)
+    frac = tb - tb.astype(int)
+    return np.where(d[k] == 0, 1.0, -1.0) * np.where(frac < 0.5, 1.0, -1.0)
+
+
 def synth_multistation_u8(num_samples: int, capture_rate: float,
                           station_freqs: list[float],
                           audio_freqs: list[float],
                           deviation: float = 75_000.0,
-                          amplitude: float | None = None
+                          amplitude: float | None = None,
+                          rds_bits: list | None = None
                           ) -> tuple[np.ndarray, list[np.ndarray]]:
     """A wideband capture holding several stations: station s is
     FM-modulated by an ``audio_freqs[s]`` tone at ``station_freqs[s]`` Hz
-    from the capture centre.  Returns ``(iq_u8, per-station audio)``."""
+    from the capture centre.  ``rds_bits``: one entry a station; a
+    non-None entry gives that station a pilot and a 57 kHz RDS subcarrier
+    carrying those bits.  Returns ``(iq_u8, per-station audio)``."""
     if len(station_freqs) != len(audio_freqs):
         raise ValueError("one audio tone a station")
+    if rds_bits is None:
+        rds_bits = [None] * len(station_freqs)
+    if len(rds_bits) != len(station_freqs):
+        raise ValueError("one rds_bits entry a station")
     if amplitude is None:
         amplitude = 0.85 / len(station_freqs)
     t = np.arange(num_samples) / capture_rate
     sig = np.zeros(num_samples, dtype=np.complex128)
     audios = []
-    for f_c, f_a in zip(station_freqs, audio_freqs):
+    for f_c, f_a, bits in zip(station_freqs, audio_freqs, rds_bits):
         audio = np.sin(2 * np.pi * f_a * t)
         audios.append(audio)
-        phase = 2 * np.pi * deviation * np.cumsum(audio) / capture_rate
+        mod = audio
+        if bits is not None:
+            mod = (0.6 * audio + 0.1 * np.cos(2 * np.pi * 19_000.0 * t)
+                   + 0.06 * _rds_sign(t, bits)
+                   * np.cos(2 * np.pi * 57_000.0 * t))
+        phase = 2 * np.pi * deviation * np.cumsum(mod) / capture_rate
         sig += amplitude * np.exp(1j * (phase + 2 * np.pi * f_c * t))
     return _to_u8(sig), audios
+
+
+def synth_wbfm_stereo_u8(num_samples: int, capture_rate: float = 1_020_000.0,
+                         left_freq: float = 800.0, right_freq: float = 1_300.0,
+                         deviation: float = 75_000.0,
+                         rds_bits: np.ndarray | None = None
+                         ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A stereo station at -fs/4: the pilot-tone multiplex 0.45 (L+R) +
+    0.1 pilot at 19 kHz + 0.45 (L-R) cos 38 kHz (+ 0.06 RDS at 57 kHz
+    carrying ``rds_bits``), L a ``left_freq`` tone and R a ``right_freq``
+    tone of amplitude 0.5.  Returns ``(iq_u8, left audio, right audio)``."""
+    t = np.arange(num_samples) / capture_rate
+    left = 0.5 * np.sin(2 * np.pi * left_freq * t)
+    right = 0.5 * np.sin(2 * np.pi * right_freq * t)
+    pilot = np.cos(2 * np.pi * 19_000.0 * t)
+    sub = np.cos(2 * np.pi * 38_000.0 * t)  # phase-locked 2x pilot
+    mpx = 0.45 * (left + right) + 0.1 * pilot + 0.45 * (left - right) * sub
+    if rds_bits is not None:
+        mpx = mpx + 0.06 * _rds_sign(t, rds_bits) * np.cos(
+            2 * np.pi * 57_000.0 * t)
+    phase = 2 * np.pi * deviation * np.cumsum(mpx) / capture_rate
+    offset = np.choose(np.arange(num_samples) % 4, [1 + 0j, -1j, -1 + 0j, 1j])
+    return _to_u8(0.9 * np.exp(1j * phase) * offset), left, right
 
 
 def tone_snr(x: np.ndarray, freq: float, fs: float, skip: int = 0) -> float:
