@@ -58,7 +58,21 @@ the ported paths through their user entry points:
   own channel only); ``rtl_power --file`` on a tone (its bin; card
   against CPU within 0.01 dB); checkpoint/resume on the card (stereo,
   multimode, fused, fused wideband, and the sharded streamer after a
-  graph replay); ``simple_fm --mode fused --trace`` naming both kernels.
+  graph replay); ``simple_fm --mode fused --trace`` naming both kernels;
+* ingest: the port's C++ runtime built with g++ and the feeder native on a
+  file and on an rtl_tcp socket; the feed alone from a file (10 x 25 MB
+  and 40 x 262,144 bytes: a bare pinned ``copy_`` loop, a pageable
+  ``.to`` loop, ``device_blocks`` and ``blocks()`` then ``.to`` with a
+  consumer that only waits); ``FusedWbfmStreamer`` fed by ``blocks()``
+  and by ``device_blocks()`` (bit-equal; one ``torch.profiler`` trace of
+  each: the busy share, and the host-to-device copies on a stream other
+  than K1's and K2's); ``simple_fm --tcp --mode fused --blocks 38`` from
+  the port's ``RtlTcpServer`` on a fake dongle paced at 1.02 Msps (no
+  drops, one K1 and one K2 launch a read, tone >= 50 dB, bit-equal to
+  ``--file`` on the same bytes, per-read latency, busy share from a
+  ``--trace`` run), the unpaced ingest rate and its drops, and the
+  server's counter test mode (2,000 reads, no break) and fan-out (two
+  clients, each stream continuous).
 
 Each path's launch counts are zeroed just before it runs and read just
 after; the audio is checked (length, tone SNR, agreement with the plain
@@ -80,9 +94,11 @@ result line).  It exits non-zero without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import io
 import json
+import logging
 import math
 import os
 import statistics
@@ -142,6 +158,18 @@ WB_RDS = {3: (0xA003, "CH 3 RDS"), 15: (0xA015, "CH15 RDS"),
           43: (0xA043, "CH43 RDS"), 55: (0xA055, "CH55 RDS")}
 PSD_RATE = 2_048_000
 PSD_DB_TOL = 0.01
+
+# the host-to-device feed and the network path (the ingest phase)
+INGEST_BLOCKS = 10           # x the 25 MB block, from a file
+INGEST_READS = 40            # x the CLI's 262,144-byte read, from a file
+TCP_SECONDS = 10.24          # the fake dongle's station: longer than is read
+TCP_BLOCKS = 38              # simple_fm --tcp --blocks
+TCP_QUEUE = 32               # the server's queue, blocks
+SNR_TCP_DB = 50.0            # the tone over the network path
+UNPACED_BLOCKS = 100         # the unpaced ingest (the JAX bench_ingest shape)
+COUNTER_READS = 2_000        # counter test mode: reads of COUNTER_READ bytes
+COUNTER_READ = 65_536
+FANOUT_BLOCKS = 200          # per fan-out client, 262,144 bytes each
 
 
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit):
@@ -1731,6 +1759,437 @@ def receivers(dev, spec, smi: str) -> dict:
     return out
 
 
+def trace_device(path: str) -> dict:
+    """A ``torch.profiler`` Chrome trace read back: the device's busy share
+    (the union of its kernel, copy and fill intervals over the span of
+    every event in the trace), the CUDA streams that ran the host-to-device
+    copies, and those that ran K1 and K2."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    on_device = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                       for e in events
+                       if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, -math.inf
+    for t0, t1 in on_device:
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+    span = (max(float(e["ts"]) + float(e["dur"]) for e in events)
+            - min(float(e["ts"]) for e in events))
+
+    def streams(match):
+        return sorted({e.get("args", {}).get("stream") for e in events
+                       if e.get("cat") in ("kernel", "gpu_memcpy")
+                       and match(e["name"])})
+
+    return {"busy_share": busy / span, "busy_us": busy, "span_us": span,
+            "device_ops": len(on_device),
+            "htod_streams": streams(lambda n: "HtoD" in n),
+            "kernel_streams": streams(lambda n: "fm_front_kernel" in n
+                                      or "fm_resample_kernel" in n),
+            "htod_copies": sum("HtoD" in e["name"] for e in events
+                               if e.get("cat") == "gpu_memcpy")}
+
+
+class _StatsRecords(logging.Handler):
+    """Collects the ``block_stats`` that ``simple_fm``'s final log record
+    carries (its per-read latencies and drops)."""
+
+    def __init__(self):
+        super().__init__()
+        self.stats = []
+
+    def emit(self, record):
+        if hasattr(record, "block_stats"):
+            self.stats.append(record.block_stats)
+
+
+def ingest(dev, u8, spec, smi: str) -> dict:
+    """The host-to-device feed (``BlockFeeder`` on the port's C++ ring and
+    pump, ``device_blocks``' pinned double buffer) and the network path:
+    (a) the native runtime loaded, and the feeder native on a file and on
+    an rtl_tcp socket; (b) the feed alone from a file, at the 25 MB block
+    and at the 262,144-byte read: a bare pinned copy loop (the ceiling),
+    a pageable ``.to`` loop and ``device_blocks`` with a consumer that only
+    waits; (c) ``FusedWbfmStreamer`` fed by ``blocks()`` and by
+    ``device_blocks()`` on the same file, bit-equal, the copies off the
+    kernels' stream in a trace; (d) ``simple_fm --tcp --mode fused`` from
+    the port's ``RtlTcpServer`` on a fake dongle paced at 1.02 Msps (no
+    drops, K1/K2 once a read, tone, bit-equal to ``--file``, per-read
+    latency, busy share), then an unpaced ingest; (e) the server's
+    counter test mode and its fan-out.  Returns the numbers."""
+    import glob
+    import threading
+
+    import numpy as np
+    import torch
+
+    from tpu_sdr_torch import api as tapi
+    from tpu_sdr_torch import native
+    from tpu_sdr_torch.control import fake
+    from tpu_sdr_torch.ops import fused_fm as FF
+    from tpu_sdr_torch.stream import feeder as FD
+    from tpu_sdr_torch.stream.rtl_tcp_server import RtlTcpServer
+    from tpu_sdr_torch.utils import synth
+
+    out = {}
+    rec = _StatsRecords()
+    logging.getLogger("simple_fm").addHandler(rec)
+
+    # ---- (a) the native runtime -------------------------------------------
+    require(native.available(), "the native runtime did not build or load")
+    out["native"] = {"library": os.path.basename(native.library_path()),
+                     "build_s": native.build_seconds}
+
+    def serve(source_factory=None, testmode=False, max_clients=1,
+              queue_limit=TCP_QUEUE):
+        """The port's rtl_tcp server on a fresh fake dongle, in a thread."""
+        fake.clear_fake_devices()
+        fake.register_fake_device(fake.FakeDeviceSpec(
+            serial="ingest01", source_factory=source_factory))
+        sdr = tapi.RtlSdr.open_with_index(0)
+        sdr.set_sample_rate(REALTIME_SPS)
+        sdr.set_testmode(testmode)
+        sdr.reset_buffer()
+        srv = RtlTcpServer(sdr, "127.0.0.1", 0, queue_limit=queue_limit,
+                           max_clients=max_clients)
+        t = threading.Thread(target=srv.serve_forever, daemon=True)
+        t.start()
+        deadline = time.monotonic() + 10
+        while srv.bound_port is None and time.monotonic() < deadline:
+            time.sleep(0.01)
+        require(srv.bound_port is not None, "rtl_tcp server did not bind")
+
+        def close():
+            srv.stop()
+            t.join(timeout=10)
+            sdr.close()
+            fake.clear_fake_devices()
+            require(not t.is_alive(), "rtl_tcp server did not stop")
+
+        return srv, close
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- (b) the feed alone from a file -------------------------------
+        feeds = {}
+        for label, nbytes, count in (("block", 2 * BLOCK_COMPLEX, INGEST_BLOCKS),
+                                     ("read", CLI_READ, INGEST_READS)):
+            path = os.path.join(tmp, f"feed_{label}.u8")
+            with open(path, "wb") as f:
+                for i in range(count):  # the station capture, read on
+                    s = i * nbytes % (len(u8) - nbytes + 1)
+                    f.write(u8[s:s + nbytes].tobytes())
+            pinned = torch.from_numpy(u8[:nbytes].copy()).pin_memory()
+            dst = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+            pageable = [u8[i * nbytes % (len(u8) - nbytes + 1):][:nbytes]
+                        for i in range(count)]
+            dst.copy_(pinned, non_blocking=True)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(count):
+                dst.copy_(pinned, non_blocking=True)
+            end.record()
+            end.synchronize()
+            ceiling = count * nbytes / (start.elapsed_time(end) * 1e-3) / 1e9
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for a in pageable:
+                torch.from_numpy(a).to(dev)
+            torch.cuda.synchronize()
+            paged = count * nbytes / (time.perf_counter() - t0) / 1e9
+
+            def feed(on_device: bool) -> float:
+                """GB/s through the native file feeder to the card, with a
+                consumer that only waits for each block: device_blocks, or
+                blocks() and a pageable .to (the like-for-like reading)."""
+                fd = FD.BlockFeeder(FD.FileSource(path), block_bytes=nbytes,
+                                    queue_blocks=4)
+                fd.start()
+                require(fd.is_native, "the file feeder is not native")
+                got = 0
+                t0 = time.perf_counter()
+                for blk in (fd.device_blocks(dev) if on_device
+                            else (torch.from_numpy(b).to(dev)
+                                  for b in fd.blocks())):
+                    torch.cuda.current_stream().synchronize()
+                    got += 1
+                wall = time.perf_counter() - t0
+                fd.stop()
+                require(got == count and fd.dropped == 0,
+                        f"feed fed {got} of {count} blocks, {fd.dropped} "
+                        "dropped")
+                require(not on_device or (len(fd.staging) >= 2 and all(
+                    s.is_pinned() for s in fd.staging)),
+                    "staging slots not pinned")
+                return count * nbytes / wall / 1e9
+
+            feed(True)  # warm: the file in the page cache
+            rates = {True: [], False: []}
+            for on_device in (False, True, True, False, False, True):
+                rates[on_device].append(feed(on_device))
+            rate = statistics.median(rates[True])
+            fed_paged = statistics.median(rates[False])
+            feeds[label] = {"bytes": nbytes, "blocks": count,
+                            "pinned_copy_gb_s": ceiling,
+                            "pageable_to_gb_s": paged,
+                            "device_blocks_gb_s": rate,
+                            "device_blocks_to_ceiling": rate / ceiling,
+                            "blocks_then_to_gb_s": fed_paged}
+            print(f"feed {label} ({count} x {nbytes} bytes from a file): "
+                  f"pinned copy_ loop {ceiling:.3f} GB/s (the ceiling), "
+                  f"pageable .to {paged:.3f} GB/s, device_blocks "
+                  f"{rate:.3f} GB/s = {rate / ceiling:.4f} of the ceiling; "
+                  f"the same feeder's blocks() then .to {fed_paged:.3f} GB/s "
+                  f"({smi})", flush=True)
+            del pinned, dst, pageable
+        out["feed"] = feeds
+
+        # ---- (c) the main path on the 262,144-byte file --------------------
+        path = os.path.join(tmp, "feed_read.u8")
+        n_complex = INGEST_READS * CLI_READ // 2
+
+        def run_streamer(on_device: bool, profile_to: str | None = None):
+            fd = FD.BlockFeeder(FD.FileSource(path), block_bytes=CLI_READ)
+            fd.start()
+            require(fd.is_native, "the file feeder is not native")
+            streamer = FF.FusedWbfmStreamer(device=dev)
+            blocks = fd.device_blocks(dev) if on_device else fd.blocks()
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with (torch.profiler.profile(activities=acts) if profile_to
+                  else contextlib.nullcontext()) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                audio = [streamer.demodulate(b) for b in blocks]
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            if profile_to:
+                prof.export_chrome_trace(profile_to)
+            fd.stop()
+            require(fd.dropped == 0, "file replay dropped a block")
+            return np.concatenate(audio), wall
+
+        run_streamer(False)
+        run_streamer(True)
+        walls = {"pageable": [], "device": []}
+        audio = {}
+        for kind in ("pageable", "device", "device", "pageable") * 5:
+            FF.reset_launch_counts()
+            audio[kind], wall = run_streamer(kind == "device")
+            walls[kind].append(wall)
+            require(FF.LAUNCHES["fm_front"] == FF.LAUNCHES["fm_resample"]
+                    == INGEST_READS, f"{kind} feed: launches {FF.LAUNCHES}")
+        require(np.array_equal(audio["pageable"], audio["device"]),
+                "device_blocks audio differs from blocks() audio")
+        main = {}
+        for kind in ("pageable", "device"):
+            tr = os.path.join(tmp, f"main_{kind}.json")
+            run_streamer(kind == "device", tr)
+            main[kind] = trace_device(tr)
+            main[kind]["wall_s"] = statistics.median(walls[kind])
+            main[kind]["walls_s"] = walls[kind]
+            main[kind]["realtime_x"] = (n_complex / main[kind]["wall_s"]
+                                        / REALTIME_SPS)
+        dev_tr = main["device"]
+        require(dev_tr["htod_copies"] >= INGEST_READS and dev_tr["kernel_streams"]
+                and not set(dev_tr["htod_streams"]) & set(dev_tr["kernel_streams"]),
+                f"device_blocks: HtoD copies on streams {dev_tr['htod_streams']}, "
+                f"K1/K2 on {dev_tr['kernel_streams']}")
+        out["main_path_file"] = main
+        print(f"FusedWbfmStreamer on {INGEST_READS} reads of {CLI_READ} bytes "
+              f"from a file: blocks() (pageable) {main['pageable']['realtime_x']:.2f}x"
+              f" real time, busy {100 * main['pageable']['busy_share']:.2f}%; "
+              f"device_blocks() {main['device']['realtime_x']:.2f}x, busy "
+              f"{100 * main['device']['busy_share']:.2f}%; audio bit-equal; "
+              f"{dev_tr['htod_copies']} HtoD copies on streams "
+              f"{dev_tr['htod_streams']}, K1/K2 on {dev_tr['kernel_streams']} "
+              f"({smi})", flush=True)
+
+        # ---- (d) simple_fm --tcp --mode fused from the port's server --------
+        station = fake.SynthFmSource(capture_rate=REALTIME_SPS,
+                                     seconds=TCP_SECONDS)
+        head = station._data[:TCP_BLOCKS * CLI_READ]
+        require(len(head) == TCP_BLOCKS * CLI_READ, "station too short")
+        file_path = os.path.join(tmp, "tcp_head.u8")
+        with open(file_path, "wb") as f:
+            f.write(head)
+        pcm_file = run_app(["--file", file_path, "--mode", "fused"])
+
+        class Paced(fake.SampleSource):
+            """The station as a dongle delivers it: a block no sooner than
+            its last sample was taken at 1.02 Msps."""
+
+            def __init__(self, inner):
+                self.inner, self.sent, self.t0 = inner, 0, None
+
+            def read(self, length):
+                if self.t0 is None:
+                    self.t0 = time.monotonic()
+                self.sent += length
+                wait = self.t0 + self.sent / (2 * REALTIME_SPS) - time.monotonic()
+                if wait > 0:
+                    time.sleep(wait)
+                return self.inner.read(length)
+
+        # the feeder's ring on a socket
+        srv, close = serve()
+        fd = FD.BlockFeeder(FD.RtlTcpClientSource("127.0.0.1", srv.bound_port))
+        fd.start()
+        require(fd.is_native, "the rtl_tcp feeder is not native")
+        fd.stop()
+        close()
+
+        pending, reads = 0, 0
+        for _ in range(TCP_BLOCKS):  # reads that hold whole chunks
+            pending += CLI_READ
+            reads += pending >= spec.chunk_bytes
+            pending %= spec.chunk_bytes
+        tcp = {}
+        for traced in (False, True):
+            station._pos = 0
+            srv, close = serve(lambda: Paced(station))
+            argv = ["--tcp", f"127.0.0.1:{srv.bound_port}", "--mode", "fused",
+                    "--blocks", str(TCP_BLOCKS)]
+            trace_dir = os.path.join(tmp, "tcp_trace")
+            if traced:
+                argv += ["--trace", trace_dir]
+            rec.stats.clear()
+            FF.reset_launch_counts()
+            t0 = time.monotonic()
+            pcm = run_app(argv)
+            wall = time.monotonic() - t0
+            launches = dict(FF.LAUNCHES)
+            close()
+            require(len(rec.stats) == 1, "simple_fm logged no block stats")
+            st = rec.stats[0]
+            require(st.dropped_blocks == 0, f"paced tcp: {st.dropped_blocks} "
+                    "blocks dropped")
+            require(launches == {"fm_front": reads, "fm_resample": reads},
+                    f"paced tcp: launches {launches}, {reads} reads with "
+                    "whole chunks")
+            require(np.array_equal(pcm, pcm_file),
+                    "simple_fm --tcp audio differs from --file audio")
+            tone = synth.tone_snr(pcm.astype(np.float64), 1_000.0, 32_000,
+                                  skip=1500)
+            require(tone >= SNR_TCP_DB, f"paced tcp: tone {tone:.1f} dB")
+            if traced:
+                traces = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+                require(len(traces) == 1, f"--trace wrote {traces}")
+                tr = trace_device(traces[0])
+                require(tr["htod_copies"] >= TCP_BLOCKS and not
+                        set(tr["htod_streams"]) & set(tr["kernel_streams"]),
+                        f"tcp: HtoD on {tr['htod_streams']}, K1/K2 on "
+                        f"{tr['kernel_streams']}")
+                tcp["traced"] = {"wall_s": wall, **tr}
+                continue
+            lat = sorted(st.latencies_ms)
+            tcp.update({"blocks": st.blocks, "dropped": st.dropped_blocks,
+                        "launches": launches, "tone_db": tone, "wall_s": wall,
+                        "latency_ms_p50": statistics.median(lat),
+                        "latency_ms_p99": lat[min(len(lat) - 1,
+                                                  int(0.99 * len(lat)))],
+                        "latency_ms_first": st.latencies_ms[0],
+                        "latency_ms_max_after_first": max(st.latencies_ms[1:]),
+                        "latency_ms": st.latencies_ms})
+        print(f"simple_fm --tcp --mode fused, paced at {REALTIME_SPS} S/s, "
+              f"{TCP_BLOCKS} reads: 0 dropped, launches {tcp['launches']}, tone "
+              f"{tcp['tone_db']:.1f} dB, audio bit-equal to --file; read "
+              f"latency (pop to audio written) median "
+              f"{tcp['latency_ms_p50']:.3f} ms, p99 {tcp['latency_ms_p99']:.3f}"
+              f" ms (the first read {tcp['latency_ms_first']:.3f} ms, the "
+              f"others at most {tcp['latency_ms_max_after_first']:.3f} ms)"
+              f"; wall {tcp['wall_s']:.3f} s; device busy "
+              f"{100 * tcp['traced']['busy_share']:.3f}% (traced run, "
+              f"{tcp['traced']['htod_copies']} HtoD copies on streams "
+              f"{tcp['traced']['htod_streams']}, K1/K2 on "
+              f"{tcp['traced']['kernel_streams']}) ({smi})", flush=True)
+
+        # unpaced: the fake dongle as fast as it makes bytes (JAX's bench_ingest)
+        station._pos = 0
+        srv, close = serve(lambda: station, queue_limit=64)
+        fd = FD.BlockFeeder(FD.RtlTcpClientSource("127.0.0.1", srv.bound_port),
+                            block_bytes=CLI_READ, queue_blocks=16)
+        fd.start()
+        got = 0
+        t0 = time.perf_counter()
+        for blk in fd.device_blocks(dev):
+            got += 1
+            if got >= UNPACED_BLOCKS:
+                break
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        dropped = fd.dropped
+        fd.stop()
+        close()
+        tcp["unpaced"] = {"blocks": got, "msps": got * CLI_READ / 2 / wall / 1e6,
+                          "dropped": dropped, "wall_s": wall}
+        out["tcp"] = tcp
+        print(f"unpaced ingest (fake dongle -> server -> socket -> native "
+              f"pump -> device_blocks): {got} blocks, "
+              f"{tcp['unpaced']['msps']:.3f} complex Msps, {dropped} dropped "
+              f"({smi})", flush=True)
+
+        # ---- (e) the server itself ------------------------------------------
+        srv, close = serve(lambda: fake.SynthFmSource(
+            capture_rate=REALTIME_SPS, seconds=0.1))
+        client = FD.RtlTcpClientSource("127.0.0.1", srv.bound_port)
+        client.set_test_mode(True)  # opcode 0x07
+        for _ in range(400):  # reads of the station until the counter starts
+            if native.count_pattern_breaks(np.frombuffer(
+                    client.read_block(COUNTER_READ), np.uint8))[0] == 0:
+                break
+        else:
+            require(False, "counter test mode never started")
+        breaks, last = 0, -1
+        for _ in range(COUNTER_READS):
+            b, last = native.count_pattern_breaks(np.frombuffer(
+                client.read_block(COUNTER_READ), np.uint8), last)
+            breaks += b
+        client.close()
+        close()
+        require(breaks == 0, f"counter mode: {breaks} breaks over "
+                f"{COUNTER_READS} blocks")
+
+        srv, close = serve(testmode=True, max_clients=2, queue_limit=64)
+        clients = [FD.RtlTcpClientSource("127.0.0.1", srv.bound_port)
+                   for _ in range(2)]
+        fan = [None, None]
+
+        def drain(i):
+            total, last = 0, -1
+            for _ in range(FANOUT_BLOCKS):
+                b, last = native.count_pattern_breaks(np.frombuffer(
+                    clients[i].read_block(CLI_READ), np.uint8), last)
+                total += b
+            fan[i] = total
+
+        threads = [threading.Thread(target=drain, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        with srv._sessions_lock:
+            drops = [s.drops for s in srv._sessions]
+        for c in clients:
+            c.close()
+        close()
+        require(fan == [0, 0] and not any(drops),
+                f"fan-out: breaks {fan}, drops {drops}")
+        out["server"] = {"counter_blocks": COUNTER_READS,
+                         "counter_block_bytes": COUNTER_READ,
+                         "counter_breaks": breaks, "fanout_blocks": FANOUT_BLOCKS,
+                         "fanout_breaks": fan, "fanout_drops": drops}
+        print(f"rtl_tcp server: counter test mode (opcode 0x07) {COUNTER_READS} "
+              f"blocks of {COUNTER_READ} bytes, 0 breaks (native "
+              f"count_pattern_breaks); fan-out 2 clients x {FANOUT_BLOCKS} "
+              f"blocks of {CLI_READ} bytes, each continuous, drops {drops}",
+              flush=True)
+    logging.getLogger("simple_fm").removeHandler(rec)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1772,6 +2231,13 @@ def main(argv=None) -> int:
     for line in lib.build_log.splitlines():
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip(), flush=True)
+    from tpu_sdr_torch import native
+
+    t0 = time.monotonic()
+    require(native.available(), "the native runtime (g++) did not build")
+    print(f"native runtime: {native.library_path()} built by g++ in "
+          f"{native.build_seconds:.2f} s (load {time.monotonic() - t0:.2f} s)",
+          flush=True)
 
     # A plain version used as an oracle computes in full f32.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1949,6 +2415,9 @@ def main(argv=None) -> int:
     # checkpoint, trace ------------------------------------------------------
     rx = receivers(dev, spec, smi)
 
+    # ---- the host-to-device feed and the network path -----------------------
+    ig = ingest(dev, u8, spec, smi)
+
     # ---- timing on the 25 MB block --------------------------------------
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     z_r = z_r.contiguous()
@@ -2060,6 +2529,7 @@ def main(argv=None) -> int:
         "parent_ratio": parent_ratio,
         "modes": md,
         "receivers": rx,
+        "ingest": ig,
     }), flush=True)
 
     # the A/B gate, held after every other phase has run

@@ -1016,3 +1016,108 @@ def test_trace_on_the_card_names_the_kernels(capture, dev, tmp_path):
     names = " ".join(e.get("name", "") for e in json.loads(
         trace.read_text())["traceEvents"])
     assert "fm_front" in names and "fm_resample" in names
+
+
+# ---- the feeder's pinned double buffer and the port's rtl_tcp server -------
+
+def test_device_blocks_are_pinned_and_land_on_the_card(dev, tmp_path):
+    """The native file feed through ``device_blocks``: at least two pinned
+    staging slots, every block a u8 tensor on cuda:0, the bytes in
+    order, none dropped."""
+    from tpu_sdr_torch.stream import feeder as FD
+
+    data = np.random.default_rng(4).integers(0, 256, 6 * 4096, dtype=np.uint8)
+    path = tmp_path / "cap.u8"
+    data.tofile(path)
+    fd = FD.BlockFeeder(FD.FileSource(str(path)), block_bytes=4096,
+                        queue_blocks=2, native=True).start()
+    got = []
+    for blk in fd.device_blocks(dev):
+        assert blk.device == dev and blk.dtype == torch.uint8
+        got.append(blk.cpu().numpy())
+    fd.stop()
+    assert len(fd.staging) >= 2 and all(s.is_pinned() for s in fd.staging)
+    assert fd.is_native and fd.dropped == 0
+    np.testing.assert_array_equal(np.concatenate(got), data)
+
+
+def test_fused_streamer_fed_device_blocks_is_bit_equal(dev, tmp_path):
+    """262,144-byte reads (a residual every read) through the feeder's
+    pinned double buffer: the same audio bits as the numpy feed, one K1
+    and one K2 launch a read, the residual kept on the card."""
+    from tpu_sdr_torch.stream import feeder as FD
+
+    read = 262_144
+    u8, _ = synth.synth_wbfm_u8(6 * read // 2, capture_rate=1_020_000)
+    u8 = np.asarray(u8, dtype=np.uint8)
+    path = tmp_path / "cap.u8"
+    u8.tofile(path)
+    ref = FF.FusedWbfmStreamer(device=dev)
+    want = np.concatenate([ref.demodulate(u8[s:s + read])
+                           for s in range(0, len(u8), read)])
+    fd = FD.BlockFeeder(FD.FileSource(str(path)), block_bytes=read).start()
+    st = FF.FusedWbfmStreamer(device=dev)
+    before = dict(FF.LAUNCHES)
+    got = np.concatenate([st.demodulate(b) for b in fd.device_blocks(dev)])
+    fd.stop()
+    assert {k: FF.LAUNCHES[k] - before[k] for k in before} == {
+        "fm_front": 6, "fm_resample": 6}
+    assert torch.is_tensor(st._pending) and st._pending.device == dev
+    np.testing.assert_array_equal(got, want)
+
+
+def test_fused_batch_streamer_fed_tensors_is_bit_equal(dev):
+    rng = np.random.default_rng(6)
+    bufs = rng.integers(0, 256, (3, 3 * 100_002), dtype=np.uint8)
+    outs = []
+    for on_card in (False, True):
+        st = FF.FusedWbfmBatchStreamer(3, device=dev)
+        pieces = [bufs[:, s:s + 100_002] for s in range(0, bufs.shape[1],
+                                                        100_002)]
+        outs.append(np.concatenate([st.demodulate(
+            torch.from_numpy(p.copy()).to(dev) if on_card else p)
+            for p in pieces], axis=1))
+    assert outs[0].shape[1] > 0
+    np.testing.assert_array_equal(outs[1], outs[0])
+
+
+def test_rtl_tcp_counter_round_trip(dev):
+    """The port's server and client on the chip machine (which has no JAX
+    server): the handshake, opcode 0x07, and the counter test pattern
+    continuous over 64 reads (the native count_pattern_breaks)."""
+    import threading
+    import time
+
+    from tpu_sdr_torch import api, native
+    from tpu_sdr_torch.control import fake
+    from tpu_sdr_torch.stream.feeder import RtlTcpClientSource
+    from tpu_sdr_torch.stream.rtl_tcp_server import RtlTcpServer
+
+    fake.clear_fake_devices()
+    fake.register_fake_device()
+    sdr = api.RtlSdr.open_with_index(0)
+    sdr.set_testmode(True)
+    sdr.reset_buffer()
+    srv = RtlTcpServer(sdr, "127.0.0.1", 0, queue_limit=16)
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    deadline = time.time() + 5
+    while srv.bound_port is None and time.time() < deadline:
+        time.sleep(0.01)
+    try:
+        client = RtlTcpClientSource("127.0.0.1", srv.bound_port)
+        assert (client.tuner_type, client.gain_count) == (5, 29)
+        client.set_test_mode(True)
+        breaks, last = 0, -1
+        for _ in range(64):
+            b, last = native.count_pattern_breaks(np.frombuffer(
+                client.read_block(65_536), np.uint8), last)
+            breaks += b
+        client.close()
+        assert native.available() and breaks == 0
+    finally:
+        srv.stop()
+        t.join(timeout=5)
+        sdr.close()
+        fake.clear_fake_devices()
+    assert not t.is_alive()

@@ -5,9 +5,10 @@ same receive chains in PyTorch, with its TPU kernels rewritten by hand as
 CUDA C++ for Hopper (``csrc/``).  It imports ``torch`` and never ``jax``,
 nor anything of ``tpu_sdr``: it keeps its own copies of the host layer it
 runs on (filter design ``utils.firdes``, synthetic captures ``utils.synth``,
-``utils.profiling.BlockStats``, the s16 conversion ``native``, the feeder
-``stream.feeder`` and the device control plane ``api``, ``errors``,
-``control``), under the JAX package's module names.
+``utils.profiling.BlockStats``, the native C++ runtime ``native`` over its
+own ``csrc/tpusdr_io.cpp``, the feeder ``stream.feeder``, the rtl_tcp
+server ``stream.rtl_tcp_server`` and the device control plane ``api``,
+``errors``, ``control``), under the JAX package's module names.
 
 Ported so far: the single-station WBFM receive path, as the f32 float
 chain (``models.wbfm``) and as the fused two-kernel chain
@@ -20,7 +21,11 @@ decoder and RDS (``models.wbfm_stereo``, ``models.rds``; ``simple_fm
 --mode stereo --rds``, ``multi_fm --rds``); the AM/NBFM/SSB receiver
 (``models.multimode``, ``apps.rtl_fm``); the spectrum scanner
 (``ops.spectrum``, ``apps.rtl_power``); checkpoint/resume
-(``stream.checkpoint``) and traces (``utils.profiling.trace``).
+(``stream.checkpoint``) and traces (``utils.profiling.trace``); the
+streaming runtime (the native ring and pump, the feeder's pinned double
+buffer ``BlockFeeder.device_blocks``) and the host CLIs ``rtl_tcp``,
+``rtl_test``, ``rtl_sdr_capture``, ``rtl_eeprom``, ``device_list`` and
+``demo_device_id``.
 """
 
 DEFAULT_BUF_LENGTH = 16 * 16384  # bytes per sync-read block (ref src/lib.rs:25)

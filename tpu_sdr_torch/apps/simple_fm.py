@@ -129,25 +129,33 @@ def output(buf: np.ndarray) -> None:
 
 
 def process_loop(demod, feeder, shutdown: threading.Event,
-                 max_blocks: int = 0):
+                 max_blocks: int = 0, device=None):
     """Demod loop with running-average timing (ref process,
     simple_fm.rs:135-170).  The receive side is the feeder's reader thread
-    (the reference's receive thread, simple_fm.rs:89-132)."""
+    or native pump (the reference's receive thread, simple_fm.rs:89-132).
+    With a CUDA ``device`` the blocks come through the feeder's pinned
+    double buffer (``device_blocks``), else as numpy arrays.  Each block's
+    latency, from the feeder's pop to its audio written, goes into the
+    stats; the final log record carries them as ``block_stats``."""
     from tpu_sdr_torch.utils.profiling import BlockStats
 
     stats = BlockStats()
-    for data in feeder.blocks():
+    blocks = (feeder.device_blocks(device) if device is not None
+              else feeder.blocks())
+    for data in blocks:
         if shutdown.is_set():
             break
         with stats.block(len(data) // 2):
             audio = demod(data)
         output(audio)
+        stats.latency(feeder.popped_at)
         if max_blocks and stats.blocks >= max_blocks:
             break
     stats.drop(feeder.dropped)
     if stats.blocks:
         log.info("Average processing time: %.2fms (%d loops); %s",
-                 stats.avg_block_ms, stats.blocks, stats.summary())
+                 stats.avg_block_ms, stats.blocks, stats.summary(),
+                 extra={"block_stats": stats})
 
 
 def run_file(path: str, demod) -> None:
@@ -241,9 +249,13 @@ def main(argv=None) -> int:
     shutdown = threading.Event()
     feeder = BlockFeeder(src, block_bytes=DEFAULT_BUF_LENGTH,
                          queue_blocks=16).start()
+    # the kernels' chain takes its blocks on the card, through the
+    # feeder's pinned double buffer
+    feed_device = (device if args.mode == "fused" and device.type == "cuda"
+                   else None)
     try:
         with trace(args.trace):
-            process_loop(demod, feeder, shutdown, args.blocks)
+            process_loop(demod, feeder, shutdown, args.blocks, feed_device)
     except KeyboardInterrupt:
         shutdown.set()
     finally:

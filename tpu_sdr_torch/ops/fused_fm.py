@@ -405,10 +405,33 @@ class FusedWbfm(nn.Module):
                                 self.h_poly, self.spec)
 
 
+def _split_pending(pending, buf, device, chunk_bytes: int):
+    """(whole chunks, new pending) of ``pending`` + ``buf`` along the last
+    axis.  A u8 tensor ``buf`` (already on the card, say, from
+    ``BlockFeeder.device_blocks``) is joined on ``device`` with one small
+    ``torch.cat`` and its residual stays there; a numpy ``buf`` is joined
+    in numpy, as before.  ``pending`` of either kind is taken over."""
+    if torch.is_tensor(buf):
+        if not torch.is_tensor(pending):
+            pending = torch.from_numpy(np.ascontiguousarray(pending))
+        buf = buf.to(device)
+        data = torch.cat([pending.to(device), buf], dim=-1) \
+            if pending.shape[-1] else buf
+    else:
+        if torch.is_tensor(pending):
+            pending = pending.cpu().numpy()
+        data = np.concatenate([pending, np.asarray(buf, dtype=np.uint8)],
+                              axis=-1)
+    usable = data.shape[-1] - data.shape[-1] % chunk_bytes
+    return data[..., :usable], data[..., usable:]
+
+
 class FusedWbfmStreamer:
     """Feed u8 blocks of any size, receive float audio: whole chunks
     (``spec.chunk_bytes``) go through the kernels, the residual leads the
-    next call, and the fs/4 phase advances by the samples consumed."""
+    next call, and the fs/4 phase advances by the samples consumed.  A
+    block may be a numpy array or a u8 tensor on the streamer's device
+    (the residual then stays on the device); the audio is the same bits."""
 
     def __init__(self, config: WbfmConfig | None = None, *,
                  device: str | torch.device):
@@ -421,13 +444,13 @@ class FusedWbfmStreamer:
         self.phase = 0
         self._pending = np.zeros(0, dtype=np.uint8)
 
-    def demodulate(self, buf: np.ndarray) -> np.ndarray:
-        data = np.concatenate([self._pending, np.asarray(buf, dtype=np.uint8)])
-        usable = len(data) - (len(data) % self.spec.chunk_bytes)
-        self._pending = data[usable:]
+    def demodulate(self, buf: np.ndarray | torch.Tensor) -> np.ndarray:
+        block, self._pending = _split_pending(self._pending, buf, self.device,
+                                              self.spec.chunk_bytes)
+        usable = block.shape[-1]
         if usable == 0:
             return np.zeros(0, dtype=np.float32)
-        block = torch.from_numpy(data[:usable]).to(self.device)
+        block = torch.as_tensor(block).to(self.device)
         audio, self.state, self.resamp_hist = self.model(
             block, self.phase, self.state, self.resamp_hist)
         self.phase = (self.phase + usable // 2) % 4
@@ -455,15 +478,14 @@ class FusedWbfmBatchStreamer:
         self.phases = [0] * stations
         self._pending = np.zeros((stations, 0), dtype=np.uint8)
 
-    def demodulate(self, bufs: np.ndarray) -> np.ndarray:
-        data = np.concatenate([self._pending, np.asarray(bufs, dtype=np.uint8)],
-                              axis=1)
-        usable = data.shape[1] - (data.shape[1] % self.spec.chunk_bytes)
-        self._pending = data[:, usable:]
+    def demodulate(self, bufs: np.ndarray | torch.Tensor) -> np.ndarray:
+        block, self._pending = _split_pending(self._pending, bufs, self.device,
+                                              self.spec.chunk_bytes)
+        usable = block.shape[-1]
         if usable == 0:
             return np.zeros((self.stations, 0), dtype=np.float32)
-        block = torch.from_numpy(np.ascontiguousarray(data[:, :usable])
-                                 ).to(self.device)
+        block = (block.contiguous() if torch.is_tensor(block) else
+                 torch.from_numpy(np.ascontiguousarray(block))).to(self.device)
         audio, self.states, self.resamp_hists = demodulate_fused_batch(
             block, self.phases, self.states, self.resamp_hists,
             self.model.taps, self.model.h_poly, self.spec)

@@ -13,7 +13,11 @@ bit-identical output across a stop and a resume.
 The flatten walks tuples, NamedTuples and lists (in field order, as
 ``jax.tree_util`` does; ``None`` is an empty subtree); its leaves are
 tensors, numpy arrays and Python numbers.  A loaded tensor lands on the
-live leaf's device and dtype.  ``pfb_carry`` — the fused wideband
+live leaf's device and dtype.  The fused streamers' ``_pending`` is a
+device tensor once they are fed tensors (``BlockFeeder.device_blocks``):
+it saves as numpy like any leaf and loads back onto the live streamer's
+device, or as numpy into a streamer not yet fed, whose next tensor block
+joins it on the device; either way the resume is bit-equal.  ``pfb_carry`` — the fused wideband
 streamer's K3 carry — is captured too: the JAX attribute list lacks it,
 so a JAX checkpoint of that streamer drops the carry.
 """

@@ -34,6 +34,7 @@ class BlockStats:
     samples: int = 0
     busy_s: float = 0.0
     dropped_blocks: int = 0
+    latencies_ms: list = field(default_factory=list, repr=False)
     _t0: float = field(default=0.0, repr=False)
     _wall0: float = field(default_factory=time.monotonic, repr=False)
 
@@ -47,6 +48,13 @@ class BlockStats:
 
     def drop(self, blocks: int = 1) -> None:
         self.dropped_blocks += blocks
+
+    def latency(self, since: float | None) -> None:
+        """Record one block's latency: from ``since`` (a
+        ``time.monotonic()`` reading, e.g. the feeder's ``popped_at``) to
+        now.  A port addition: the JAX meter has none."""
+        if since is not None:
+            self.latencies_ms.append(1000.0 * (time.monotonic() - since))
 
     @property
     def avg_block_ms(self) -> float:
