@@ -72,7 +72,21 @@ the ported paths through their user entry points:
   ``--file`` on the same bytes, per-read latency, busy share from a
   ``--trace`` run), the unpaced ingest rate and its drops, and the
   server's counter test mode (2,000 reads, no break) and fan-out (two
-  clients, each stream continuous).
+  clients, each stream continuous);
+* graphs: every graphed streamer (``tpu_sdr_torch.utils.graphs``) through
+  its CLI's per-read work at its CLI's read (262,144 bytes; 696,320 for
+  ``multi_fm``), 100 reads after 8 warm-up reads: ``simple_fm --mode
+  fused|fir|boxcar``, ``--mode fir --deemph 75``, ``--mode stereo
+  --rds``, ``multi_fm --fused`` with and without ``--rds``, ``rtl_fm -M
+  fm|am`` in 5 interleaved rounds of each form, and ``rtl_fm -M
+  usb|lsb``, ``-M wbfm --rds``, ``multi_fm``'s plain front and both
+  station batches in one: the default (a CUDA graph replay a read after
+  the first read of a key) bit-equal to ``graphs.disabled()`` on every
+  output of every read, one ``cudaGraphLaunch`` a streamer a read and no
+  kernel launch after warm-up (a profiler trace of each form), K1/K2/K3
+  counters equal to the eager run's and one a read with a chunk; host ms
+  a read, real-time factor, device operations and launch calls a read,
+  busy share and peak memory of each form.
 
 Each path's launch counts are zeroed just before it runs and read just
 after; the audio is checked (length, tone SNR, agreement with the plain
@@ -170,6 +184,20 @@ UNPACED_BLOCKS = 100         # the unpaced ingest (the JAX bench_ingest shape)
 COUNTER_READS = 2_000        # counter test mode: reads of COUNTER_READ bytes
 COUNTER_READ = 65_536
 FANOUT_BLOCKS = 200          # per fan-out client, 262,144 bytes each
+# the graphs phase: each graphed streamer at its CLI's read
+GRAPH_READS = 100            # reads a round
+GRAPH_ROUNDS = 5             # interleaved rounds of each form (CLI paths)
+GRAPH_WARM = 8               # reads before the rounds (the keys' captures)
+GRAPH_TRACE_READS = 10       # reads in each form's profiler trace
+TRACE_PAD_LAUNCHES = 64      # device work that opens a trace, left out of it
+TRACE_TRIES = 3              # traces taken until one holds every device record
+GRAPH_WB_READS = 32          # the wideband capture's reads, cycled
+GRAPH_BATCH_STATIONS = 8
+# the device kernels behind each counted wrapper, by counter name: a trace
+# must see as many of them as the counters gained
+KERNEL_EVENTS = {"fm_front": ("fm_front_kernel",),
+                 "fm_resample": ("fm_resample_kernel",),
+                 "pfb_channelize": ("pfb64_kernel", "pfb_direct_kernel")}
 
 
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit):
@@ -2190,6 +2218,430 @@ def ingest(dev, u8, spec, smi: str) -> dict:
     return out
 
 
+def _is_call(name: str) -> bool:
+    """A host runtime call that puts work on the device."""
+    return "Launch" in name or name.startswith(
+        ("cudaMemcpy", "cudaMemset", "cuMemcpy", "cuMemset"))
+
+
+def trace_reads(fn, reads, start=lambda: None) -> dict:
+    """One ``torch.profiler`` trace of ``fn`` over ``reads`` (after the
+    rounds that warmed it): device operations by kind, the device's busy
+    time (the union of its intervals) over the host wall of the traced
+    calls, the host's launch and copy calls by name, and the device's
+    runs of each kernel of ``KERNEL_EVENTS`` by counter name.
+
+    Only the host calls made inside the "traced reads" range count, with
+    the device records of their correlation.  A trace opens with
+    ``TRACE_PAD_LAUNCHES`` small launches and a pause, outside that range:
+    on the H100 a trace's first few device records (the first 0.6-2.2
+    ms) came back missing, in a process that had traced before.  Then
+    ``start()`` (the caller's marks) and the reads.  The trace must be
+    whole, every counted host call with a device record; one that is not
+    is taken again, up to ``TRACE_TRIES`` times, with a longer opening."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    pad = torch.zeros(1, device=torch.cuda.current_device())
+    for attempt in range(1, TRACE_TRIES + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(TRACE_PAD_LAUNCHES * attempt):
+                pad.add_(1)
+            torch.cuda.synchronize()
+            time.sleep(0.02 * attempt)
+            start()
+            with record_function("traced reads"):
+                t0 = time.perf_counter()
+                for r in reads:
+                    fn(r)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+        raw = prof.profiler.kineto_results.events()
+        # the range on the host (kineto also draws it on the device)
+        span = [e for e in raw if e.name() == "traced reads"
+                and e.device_type() != DeviceType.CUDA]
+        require(len(span) == 1, f"trace: {len(span)} 'traced reads' ranges")
+        lo, hi = span[0].start_ns(), span[0].end_ns()
+        calls = {e.correlation_id(): e.name() for e in raw
+                 if e.device_type() != DeviceType.CUDA and _is_call(e.name())
+                 and lo <= e.start_ns() <= hi}
+        records = [e for e in raw if e.device_type() == DeviceType.CUDA
+                   and e.correlation_id() in calls
+                   and e.name() != "traced reads"]
+        lost = set(calls) - {e.correlation_id() for e in records}
+        if not lost:
+            break
+        print(f"trace: {len(lost)} of {len(calls)} host calls came back "
+              f"without a device record (attempt {attempt}); tracing again",
+              flush=True)
+    require(not lost, f"trace: {len(lost)} of {len(calls)} host calls without "
+            f"a device record in each of {TRACE_TRIES} traces")
+    device, host, spans = {}, {}, []
+    kernels = dict.fromkeys(KERNEL_EVENTS, 0)
+    for e in records:
+        name, low = e.name(), e.name().lower()
+        kind = ("memcpy" if "memcpy" in low else "memset" if "memset" in low
+                else "kernel")
+        device[kind] = device.get(kind, 0) + 1
+        spans.append((e.start_ns() / 1e3, e.end_ns() / 1e3))
+        for counter, names in KERNEL_EVENTS.items():
+            kernels[counter] += any(k in name for k in names)
+    for name in calls.values():
+        host[name] = host.get(name, 0) + 1
+    busy, end = 0.0, -math.inf
+    for t0, t1 in sorted(spans):
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+    n = len(reads)
+    launches = {k: v for k, v in host.items() if "Launch" in k}
+    return {"reads": n, "device_ops_a_read": sum(device.values()) / n,
+            "device": device, "busy_us": busy, "wall_us": wall_us,
+            "busy_share": busy / wall_us,
+            "host_launch_calls_a_read": sum(launches.values()) / n,
+            "graph_launches": sum(v for k, v in launches.items()
+                                  if "Graph" in k),
+            "kernel_launches": sum(v for k, v in launches.items()
+                                   if "Graph" not in k),
+            "host": host, "kernels": kernels, "attempts": attempt}
+
+
+def same_outputs(a, b) -> bool:
+    """Two reads' outputs (arrays, numbers and lists of RDS events) equal
+    bit for bit."""
+    import numpy as np
+
+    if isinstance(a, list):
+        return (isinstance(b, list) and len(a) == len(b)
+                and all(same_outputs(x, y) for x, y in zip(a, b)))
+    if isinstance(a, str):
+        return a == b
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def graphs_phase(dev, u8_two, smi: str) -> dict:
+    """Each graphed streamer (``utils.graphs``) at its CLI's read, through
+    the CLIs' own per-read work (the streamer, the s16 conversion, the RDS
+    decoders): the default (one CUDA graph replay a read after the first
+    read of a key) against ``graphs.disabled()`` (eager) on the same
+    reads.  Gates: every output of every read bit-equal; after warm-up
+    each streamer's read one ``cudaGraphLaunch`` and no kernel launch (a
+    profiler trace of each form); K1/K2/K3 counters equal to the eager
+    run's and to the reads with a chunk, and over each form's trace to
+    the runs of those kernels the trace saw on the device (a whole trace:
+    every host launch and copy call in it with its device record).
+    Printed: host ms a read and the
+    real-time factor of each form (medians of GRAPH_ROUNDS interleaved
+    rounds for the CLI paths, one round for the rest), device operations
+    and host launch calls a read, the busy share and the peak memory."""
+    import numpy as np
+    import torch
+
+    from tpu_sdr_torch.apps import rtl_fm
+    from tpu_sdr_torch.models import rds as R
+    from tpu_sdr_torch.models import wbfm as TW
+    from tpu_sdr_torch.models import wbfm_batched as TB
+    from tpu_sdr_torch.models import wbfm_stereo as TS
+    from tpu_sdr_torch.models import wbfm_wideband as WB
+    from tpu_sdr_torch.native import f32_to_s16
+    from tpu_sdr_torch.ops import fused_channelizer as FC
+    from tpu_sdr_torch.ops import fused_fm as FF
+    from tpu_sdr_torch.utils import graphs, synth
+    from tpu_sdr_torch.utils.design import WbfmConfig
+
+    n = GRAPH_READS + GRAPH_WARM
+    mono = u8_two[: n * CLI_READ]
+    require(len(mono) == n * CLI_READ, "the mono capture is too short")
+    # a stereo station with RDS, and 1.024 s of 8 stations (4 with RDS),
+    # read cyclically
+    rt = RDS_RT + "\r"
+    rt += " " * (-len(rt) % 4)
+    one = np.concatenate(
+        [R.make_group_0a(RDS_PI, 9, k, RDS_PS[2 * k:2 * k + 2])
+         for k in range(4)]
+        + [R.make_group_2a(RDS_PI, 9, k, rt[4 * k:4 * k + 4])
+           for k in range(len(rt) // 4)])
+    t0 = time.monotonic()
+    n_st = n * CLI_READ // 2
+    n_bits = int(n_st / REALTIME_SPS * R.RDS_RATE) + 2
+    stereo, _, _ = synth.synth_wbfm_stereo_u8(
+        n_st, REALTIME_SPS, rds_bits=np.tile(one, n_bits // len(one) + 1)
+        [:n_bits])
+    config = WB.WidebandConfig(channels=WB_CHANNELS)
+    K = config.num_channels
+    n_wb = GRAPH_WB_READS * WB_READ_BYTES // 2
+    n_bits = int(n_wb / config.capture_rate * R.RDS_RATE) + 2
+    rds_bits = []
+    for ch in WB_CHANNELS:
+        if ch in WB_RDS:
+            pi, ps = WB_RDS[ch]
+            g = np.concatenate([R.make_group_0a(pi, 5, k, ps[2 * k:2 * k + 2])
+                                for k in range(4)])
+            rds_bits.append(np.tile(g, n_bits // len(g) + 1)[:n_bits])
+        else:
+            rds_bits.append(None)
+    wide, _ = synth.synth_multistation_u8(
+        n_wb, config.capture_rate,
+        station_freqs=[(k if k <= K // 2 else k - K) * config.channel_rate
+                       for k in WB_CHANNELS],
+        audio_freqs=list(WB_TONES), deviation=60_000.0, rds_bits=rds_bits)
+    print(f"graphs captures: stereo with RDS {n_st} complex, wideband "
+          f"{n_wb} complex (RDS on {sorted(WB_RDS)}), made in "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+
+    def cut(data, size):
+        return [data[i * size:(i + 1) * size] for i in range(n)]
+
+    def cyclic(data, size, stations=1):
+        """Reads of ``size`` bytes, station k offset by k/stations of the
+        capture; the capture is read round and round."""
+        span = len(data) // size * size
+        reads = []
+        for i in range(n):
+            rows = [data[(i * size + k * span // stations // 2 * 2) % span:][
+                :size] for k in range(stations)]
+            rows = [r if len(r) == size else np.concatenate(
+                [r, data[:size - len(r)]]) for r in rows]
+            reads.append(rows[0] if stations == 1 else np.stack(rows))
+        return reads
+
+    mono_reads = cut(mono, CLI_READ)
+    wide_reads = cyclic(wide, WB_READ_BYTES)
+
+    def mono_path(streamer):
+        def read(buf):
+            a = streamer.demodulate(buf)
+            f32_to_s16(a)
+            return [a]
+        return read, [streamer]
+
+    def simple(mode, deemph=0.0):
+        return mono_path(TW.WbfmStreamer(WbfmConfig(
+            filter_mode=mode, deemphasis_tau=deemph * 1e-6), device=dev))
+
+    def stereo_rds():
+        s = TS.WbfmStereoStreamer(TS.StereoConfig(emit_mpx=True), device=dev)
+        rx = R.RdsStreamDecoder(R.RdsConfig.for_mpx_rate(340_000), device=dev)
+
+        def read(buf):
+            a = s.demodulate(buf)
+            events = rx.feed_mpx(s.last_mpx)
+            f32_to_s16(a.T.reshape(-1))
+            return [a, s.last_mpx, rx.rx.pilot_amp, events]
+        return read, [s, rx.rx]
+
+    def multi(rds, fused=True):
+        s = WB.WidebandStreamer(WB.WidebandConfig(
+            channels=WB_CHANNELS, emit_mpx=rds), use_fused=fused, device=dev)
+        rxs = [R.RdsStreamDecoder(device=dev) for _ in WB_CHANNELS] if rds \
+            else []
+
+        def read(buf):
+            a = s.demodulate(buf)
+            for row in a:
+                f32_to_s16(row)
+            return [a] + [rx.feed_mpx(s.last_mpx[k])
+                          for k, rx in enumerate(rxs)]
+        return read, [s] + [rx.rx for rx in rxs]
+
+    def narrow(mode, rds=False):
+        s = rtl_fm.make_streamer(mode, dev, rds=rds)
+        rx = R.RdsStreamDecoder(device=dev) if rds else None
+
+        def read(buf):
+            a = s.demodulate(buf)
+            out = [a, getattr(s, "last_power", None) or 0.0]
+            if rx is not None:
+                out.append(rx.feed_mpx(s.last_mpx))
+            f32_to_s16(a)
+            return out
+        return read, [s] + ([rx.rx] if rx else [])
+
+    def fused_batch(mixed):
+        """The batch at one phase (K1's compile-time body, the phase in the
+        key) or at a phase a station (the run-time body, the phases read
+        from the streamer's device tensor)."""
+        s = FF.FusedWbfmBatchStreamer(GRAPH_BATCH_STATIONS, device=dev)
+        if mixed:
+            s.phases = [k % 4 for k in range(GRAPH_BATCH_STATIONS)]
+
+        def read(buf):
+            return [s.demodulate(buf)]
+        return read, [s]
+
+    def float_batch():
+        s = TB.WbfmBatchStreamer(2, device=dev)
+
+        def read(buf):
+            return [s.demodulate(buf)]
+        return read, [s]
+
+    # (name, make, reads, complex samples a read, capture rate, rounds)
+    cli = [
+        ("simple_fm --mode fused",
+         lambda: mono_path(FF.FusedWbfmStreamer(device=dev)), mono_reads),
+        ("simple_fm --mode fir", lambda: simple("fir"), mono_reads),
+        ("simple_fm --mode boxcar", lambda: simple("boxcar"), mono_reads),
+        ("simple_fm --mode fir --deemph 75", lambda: simple("fir", 75.0),
+         mono_reads),
+        ("simple_fm --mode stereo --rds", stereo_rds,
+         cut(np.asarray(stereo, np.uint8), CLI_READ)),
+        ("multi_fm --fused", lambda: multi(False), wide_reads),
+        ("multi_fm --fused --rds", lambda: multi(True), wide_reads),
+        ("rtl_fm -M fm", lambda: narrow("fm"), mono_reads),
+        ("rtl_fm -M am", lambda: narrow("am"), mono_reads),
+    ]
+    others = [
+        ("rtl_fm -M usb", lambda: narrow("usb"), mono_reads),
+        ("rtl_fm -M lsb", lambda: narrow("lsb"), mono_reads),
+        ("rtl_fm -M wbfm --rds", lambda: narrow("wbfm", rds=True),
+         mono_reads),
+        ("multi_fm (plain front)", lambda: multi(False, fused=False),
+         wide_reads),
+        (f"FusedWbfmBatchStreamer x{GRAPH_BATCH_STATIONS}",
+         lambda: fused_batch(False),
+         cyclic(u8_two, CLI_READ, GRAPH_BATCH_STATIONS)),
+        (f"FusedWbfmBatchStreamer x{GRAPH_BATCH_STATIONS} (a phase a "
+         f"station)", lambda: fused_batch(True),
+         cyclic(u8_two, CLI_READ, GRAPH_BATCH_STATIONS)),
+        ("WbfmBatchStreamer x2", float_batch, cyclic(u8_two, CLI_READ, 2)),
+    ]
+    def reset():
+        FF.reset_launch_counts()
+        FC.reset_launch_counts()
+
+    def counts():
+        return {**FF.LAUNCHES, **FC.LAUNCHES}
+
+    out = {}
+    for rounds, table in ((GRAPH_ROUNDS, cli), (1, others)):
+        for name, make, reads in table:
+            is_wide = name.startswith("multi_fm")
+            rate = config.capture_rate if is_wide else REALTIME_SPS
+            n_complex = reads[0].shape[-1] // 2
+            warm, timed = reads[:GRAPH_WARM], reads[GRAPH_WARM:]
+            with graphs.disabled():
+                eager_fn, _ = make()
+                for r in warm:
+                    eager_fn(r)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            graph_fn, streamers = make()
+            for r in warm:
+                graph_fn(r)
+            walls = {"eager": [], "graphed": []}
+            launches = {}
+            for k in range(rounds):
+                got = {}
+                for form in ("eager", "graphed") if k % 2 == 0 else (
+                        "graphed", "eager"):
+                    reset()
+                    ctx = graphs.disabled() if form == "eager" else \
+                        contextlib.nullcontext()
+                    fn = eager_fn if form == "eager" else graph_fn
+                    with ctx:
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        got[form] = [fn(r) for r in timed]
+                        torch.cuda.synchronize()
+                        walls[form].append(time.perf_counter() - t0)
+                    launches[form] = counts()
+                bad = [i for i, (a, b) in enumerate(zip(got["eager"],
+                                                        got["graphed"]))
+                       if not same_outputs(a, b)]
+                require(not bad, f"graphs: {name} round {k}: reads {bad[:5]} "
+                        f"differ from graphs.disabled()")
+                require(launches["eager"] == launches["graphed"],
+                        f"graphs: {name}: launches {launches}")
+            peak = torch.cuda.max_memory_allocated(dev)
+            with_chunk = sum(1 for g in got["graphed"]
+                             if np.asarray(g[0]).shape[-1])
+            lg = launches["graphed"]
+            if "fused" in name and not is_wide:
+                require(lg["fm_front"] == lg["fm_resample"] == with_chunk,
+                        f"graphs: {name}: K1/K2 {lg}, {with_chunk} reads "
+                        f"with a chunk")
+            if is_wide and "plain" not in name:
+                require(lg["pfb_channelize"] == with_chunk,
+                        f"graphs: {name}: K3 {lg}, {with_chunk} reads")
+            # one trace of each form over reads after the rounds
+            tr_reads = timed[:GRAPH_TRACE_READS]
+            before = []
+
+            def start():
+                """Counters to 0 and the streamers' counts, as the traced
+                reads begin."""
+                reset()
+                before[:] = [(s.graphs.captures, s.graphs.replays)
+                             for s in streamers]
+
+            trace = {"graphed": trace_reads(graph_fn, tr_reads, start)}
+            gained = {"graphed": counts()}
+            caps = sum(s.graphs.captures - b[0]
+                       for s, b in zip(streamers, before))
+            reps = sum(s.graphs.replays - b[1]
+                       for s, b in zip(streamers, before))
+            with graphs.disabled():
+                trace["eager"] = trace_reads(eager_fn, tr_reads, reset)
+                gained["eager"] = counts()
+            # the counters' launches are the kernels the device ran: inside
+            # the replayed graphs as well as eagerly
+            for form, seen in ((f, trace[f]["kernels"]) for f in trace):
+                require(all(seen[k] == gained[form].get(k, 0)
+                            for k in KERNEL_EVENTS),
+                        f"graphs: {name} {form}: the trace saw kernels "
+                        f"{seen}, the counters gained {gained[form]}")
+            tg = trace["graphed"]
+            require(tg["graph_launches"] == reps,
+                    f"graphs: {name}: {tg['graph_launches']} graph launches "
+                    f"for {reps} replays")
+            if caps == 0:
+                require(tg["kernel_launches"] == 0 and reps == len(tr_reads)
+                        * len(streamers),
+                        f"graphs: {name}: {tg['host']} over "
+                        f"{len(tr_reads)} reads after warm-up, {reps} replays")
+            keys = [len(s.graphs.keys) for s in streamers]
+            res = {"reads_a_round": len(timed), "rounds": rounds,
+                   "read_bytes": int(reads[0].shape[-1]),
+                   "peak_mib": peak / 2 ** 20, "keys": keys,
+                   "captures": [s.graphs.captures for s in streamers],
+                   "trace_captures": caps, "launches": lg,
+                   "trace_kernels": trace["graphed"]["kernels"],
+                   "trace_attempts": {f: trace[f]["attempts"] for f in trace}}
+            for form in ("eager", "graphed"):
+                wall = statistics.median(walls[form])
+                res[form] = {
+                    "host_ms_a_read": wall / len(timed) * 1e3,
+                    "walls_s": walls[form],
+                    "realtime_x": n_complex * len(timed) / wall / rate,
+                    **{k: trace[form][k] for k in (
+                        "device_ops_a_read", "host_launch_calls_a_read",
+                        "busy_share", "busy_us", "wall_us", "host")}}
+            out[name] = res
+            e, g = res["eager"], res["graphed"]
+            print(f"graphs {name}: {len(timed)} reads of "
+                  f"{res['read_bytes']} B x {rounds} round(s), bit-equal to "
+                  f"graphs.disabled(); host ms a read eager "
+                  f"{e['host_ms_a_read']:.4f} / graphed "
+                  f"{g['host_ms_a_read']:.4f}; real time {e['realtime_x']:.2f}x"
+                  f" / {g['realtime_x']:.2f}x; device ops a read "
+                  f"{e['device_ops_a_read']:.1f} / {g['device_ops_a_read']:.1f}"
+                  f"; host launch calls a read "
+                  f"{e['host_launch_calls_a_read']:.1f} / "
+                  f"{g['host_launch_calls_a_read']:.1f} ({g['host']}); busy "
+                  f"{100 * e['busy_share']:.2f}% / {100 * g['busy_share']:.2f}"
+                  f"%; keys {keys}, launches {lg} (kernels seen in the "
+                  f"graphed trace {res['trace_kernels']}; traces taken "
+                  f"{res['trace_attempts']}), peak "
+                  f"{res['peak_mib']:.1f} "
+                  f"MiB ({smi})", flush=True)
+            del eager_fn, graph_fn, streamers
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2418,6 +2870,9 @@ def main(argv=None) -> int:
     # ---- the host-to-device feed and the network path -----------------------
     ig = ingest(dev, u8, spec, smi)
 
+    # ---- the graphed steps: each streamer's read one CUDA graph replay --------
+    gr = graphs_phase(dev, u8_two, smi)
+
     # ---- timing on the 25 MB block --------------------------------------
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     z_r = z_r.contiguous()
@@ -2530,6 +2985,7 @@ def main(argv=None) -> int:
         "modes": md,
         "receivers": rx,
         "ingest": ig,
+        "graphs": gr,
     }), flush=True)
 
     # the A/B gate, held after every other phase has run

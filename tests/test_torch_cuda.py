@@ -1121,3 +1121,161 @@ def test_rtl_tcp_counter_round_trip(dev):
         sdr.close()
         fake.clear_fake_devices()
     assert not t.is_alive()
+
+
+# ---- the graphed steps (utils.graphs): each streamer's read one replay ----
+
+def _graph_cases():
+    """name -> (make(device) streamer, data, read lengths, feed): small
+    captures, uneven seeded reads with two-chunk reads among them."""
+    from tpu_sdr_torch.models import multimode as TM
+    from tpu_sdr_torch.models import rds as TR
+    from tpu_sdr_torch.models import wbfm as TW
+    from tpu_sdr_torch.models import wbfm_batched as TB
+    from tpu_sdr_torch.models import wbfm_stereo as TS
+
+    def lengths(mean, jitter, seed, long=0, n=24):
+        rng = np.random.default_rng(seed)
+        out = (mean + rng.integers(-jitter, jitter + 1, n)) // 2 * 2
+        if long:
+            out[3::6] = long
+        return out
+
+    def fm(n, seed):
+        return np.asarray(synth.synth_wbfm_u8(n, noise_std=0.02,
+                                              seed=seed)[0], np.uint8)
+
+    def float_stream(**kw):
+        config = design.WbfmConfig(**kw)
+        return (lambda d: TW.WbfmStreamer(config, device=d), fm(60_000, 1),
+                lengths(3_300, 700, 2),
+                lambda s, b: (s.demodulate(b),) + (
+                    (s.last_mpx,) if config.emit_mpx else ()))
+
+    def batch(d):
+        s = FF.FusedWbfmBatchStreamer(2, device=d)
+        s.phases = [1, 2]
+        return s
+
+    mpx = np.sin(np.arange(60_000) * 0.7).astype(np.float32)
+    rows = np.stack([fm(1_200_000, 3), fm(1_200_000, 4)])
+    wide = np.asarray(synth.synth_multistation_u8(
+        700_000, 64 * 170_000, station_freqs=[3 * 170_000, -4 * 170_000],
+        audio_freqs=[1_000.0, 2_500.0], deviation=45_000.0)[0], np.uint8)
+    stereo = np.asarray(synth.synth_wbfm_stereo_u8(60_000)[0], np.uint8)
+
+    def wideband(fused):
+        config = WB.WidebandConfig(channels=(3, 60), emit_mpx=True)
+        return (lambda d: WB.WidebandStreamer(config, use_fused=fused,
+                                              device=d),
+                wide, lengths(30_000, 28_000, 5, long=180_000),
+                lambda s, b: (s.demodulate(b), s.last_mpx))
+
+    def multimode(mode, **kw):
+        config = TM.MultimodeConfig(mode=mode, **kw)
+        return (lambda d: TM.MultimodeStreamer(config, device=d),
+                fm(60_000, 8), lengths(3_300, 700, 8),
+                lambda s, b: (s.demodulate(b), np.float32(s.last_power)))
+
+    return {
+        "fused": (lambda d: FF.FusedWbfmStreamer(device=d), fm(1_200_000, 2),
+                  lengths(50_000, 48_000, 3, long=2 * CHUNK + 9_000),
+                  lambda s, b: (s.demodulate(b),)),
+        "fused_batch": (batch, rows,
+                        lengths(50_000, 48_000, 4, long=2 * CHUNK + 9_000),
+                        lambda s, b: (s.demodulate(b),)),
+        "fused_batch_one_phase": (
+            lambda d: FF.FusedWbfmBatchStreamer(2, device=d), rows,
+            lengths(50_000, 48_000, 4, long=2 * CHUNK + 9_000),
+            lambda s, b: (s.demodulate(b),)),
+        "fir": float_stream(),
+        "boxcar": float_stream(filter_mode="boxcar"),
+        "fir_deemph_mpx": float_stream(deemphasis_tau=75e-6, emit_mpx=True),
+        "float_batch": (lambda d: TB.WbfmBatchStreamer(2, device=d),
+                        rows[:, :120_000], lengths(3_000, 6, 6),
+                        lambda s, b: (s.demodulate(b),)),
+        "wideband_plain": wideband(False),
+        "wideband_fused": wideband(True),
+        "stereo": (lambda d: TS.WbfmStereoStreamer(TS.StereoConfig(
+            emit_mpx=True, deemphasis_tau=75e-6), device=d), stereo,
+            lengths(2_100, 500, 7),
+            lambda s, b: (s.demodulate(b), s.last_mpx)),
+        "rds": (lambda d: TR.RdsReceiver(device=d), mpx,
+                lengths(2_200, 500, 9),
+                lambda s, b: (s.process(b), np.float32(s.pilot_amp))),
+        "fm": multimode("nbfm", deemphasis_tau=75e-6),
+        "am": multimode("am", squelch_db=-40.0),
+        "usb": multimode("usb", fine_tune_hz=120.0),
+        "lsb": multimode("lsb"),
+    }
+
+
+GRAPH_CASES = ["fused", "fused_batch", "fused_batch_one_phase", "fir", "boxcar", "fir_deemph_mpx",
+               "float_batch", "wideband_plain", "wideband_fused", "stereo",
+               "rds", "fm", "am", "usb", "lsb"]
+
+
+def _launch_counts():
+    return {**FF.LAUNCHES, **FC.LAUNCHES}
+
+
+@pytest.mark.parametrize("name", GRAPH_CASES)
+def test_graphed_streamer_equals_disabled(dev, name):
+    """Each graphed streamer on the card over uneven reads: the same bits
+    as ``graphs.disabled()`` (the eager step), every read after the first
+    of its key one replay, the kernels' counters exact (one K1 and one K2,
+    or one K3, a read with a chunk), the peak memory bounded."""
+    from tpu_sdr_torch.utils import graphs
+
+    make, data, lens, feed = _graph_cases()[name]
+    reads, at = [], 0
+    for n in lens:
+        reads.append(data[..., at:at + n])
+        at += n
+    eager_streamer = make(dev)
+    with graphs.disabled():
+        FF.reset_launch_counts()
+        FC.reset_launch_counts()
+        exp = [feed(eager_streamer, r) for r in reads]
+        eager_launches = _launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    s = make(dev)
+    FF.reset_launch_counts()
+    FC.reset_launch_counts()
+    got = []
+    for r in reads:
+        before = (s.graphs.captures, s.graphs.replays)
+        got.append(feed(s, r))
+        after = (s.graphs.captures, s.graphs.replays)
+        if got[-1][0].shape[-1]:
+            assert sum(after) == sum(before) + 1
+    peak = torch.cuda.max_memory_allocated(dev)
+    assert s.graphs.graph is not None and s.graphs.replays > s.graphs.captures
+    for i, (e, g) in enumerate(zip(exp, got)):
+        for x, y in zip(e, g):
+            assert x.shape == y.shape and np.array_equal(x, y), (name, i)
+    assert _launch_counts() == eager_launches
+    with_chunk = sum(1 for g in got if g[0].shape[-1])
+    if name.startswith("fused"):
+        assert eager_launches["fm_front"] == with_chunk
+        assert eager_launches["fm_resample"] == with_chunk
+    if name == "wideband_fused":
+        assert eager_launches["pfb_channelize"] == with_chunk
+    assert peak < 2 << 30, f"{name}: peak {peak / 2**20:.1f} MiB"
+
+
+def test_graph_capture_failure_names_the_streamer(dev):
+    """A step that syncs with the host cannot be captured: the error names
+    the streamer and the key, and nothing runs eagerly in its place."""
+    from tpu_sdr_torch.utils import graphs
+
+    def step(static, inputs, carries):
+        x = inputs[0] * 2
+        if float(x.sum()) > 1e30:  # a host sync inside the step
+            x = x * 0
+        return [x], [carries[0] + 1], None
+
+    g = graphs.StepGraphs("syncing", step, dev)
+    with pytest.raises(graphs.GraphCaptureError, match="syncing"):
+        g((), [np.ones(8, np.float32)], [torch.zeros(1, device=dev)])
+    assert g.keys == [] and g.graph is None

@@ -1,0 +1,660 @@
+"""The graphed streamers (``tpu_sdr_torch.utils.graphs``) on the CPU.
+
+CUDA graphs do not exist on the CPU: there each streamer runs its step
+eagerly on the same static input, carry and output buffers that its graphs
+replay over on the card (the static-buffer form).  For every graphed
+streamer, over 64 uneven reads (seeded numpy lengths that leave residuals,
+read nothing now and then, and change the key), the static-buffer form
+must be bit-equal to the eager streamer loop the port ran before (the
+block functions called one read at a time), ``graphs.disabled()`` must
+give the same bits, and the audio must match the JAX streamer on the same
+reads at the bar the other ``test_torch_*`` files hold it to: >= 100 dB
+(the narrowband modes with the JAX weights converted and their first 32
+samples left out, as ``test_torch_multimode.py`` does).  Also here:
+checkpoint and resume through the static buffers, the float chain's keys
+at the CLI's 262,144-byte reads, the helper's own rules (eviction, carries
+assigned from outside, the SSB mixer's index as a tensor), and a soak of
+the port mirroring ``tests/test_soak.py``.  The twins on the card, graphed
+against ``graphs.disabled()``, are in ``tests/test_torch_cuda.py``.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_sdr.models import multimode as JM
+from tpu_sdr.models import rds as JR
+from tpu_sdr.models import wbfm as JW
+from tpu_sdr.models import wbfm_batched as JB
+from tpu_sdr.models import wbfm_stereo as JS
+from tpu_sdr.models import wbfm_wideband as JWB
+from tpu_sdr.ops import pallas_fm
+from tpu_sdr_torch import convert
+from tpu_sdr_torch.models import multimode as TM
+from tpu_sdr_torch.models import rds as TR
+from tpu_sdr_torch.models import wbfm as TW
+from tpu_sdr_torch.models import wbfm_batched as TB
+from tpu_sdr_torch.models import wbfm_exact as TE
+from tpu_sdr_torch.models import wbfm_stereo as TS
+from tpu_sdr_torch.models import wbfm_wideband as WB
+from tpu_sdr_torch.ops import fused_fm as FF
+from tpu_sdr_torch.stream import checkpoint as C
+from tpu_sdr_torch.utils import graphs, synth
+from tpu_sdr_torch.utils.design import WbfmConfig
+
+torch.set_num_threads(1)
+
+CPU = torch.device("cpu")
+READS = 64
+CHUNK = FF.default_spec().chunk_bytes  # 130,560
+WB_CONFIG = dict(num_channels=64, channels=(3, 60))
+
+
+def _snr_db(ref, got):
+    ref = np.asarray(ref, dtype=np.float64)
+    err = np.asarray(got, dtype=np.float64) - ref
+    return 10 * np.log10(np.mean(ref ** 2) / max(np.mean(err ** 2), 1e-30))
+
+
+def _lengths(mean: int, jitter: int, step: int, seed: int,
+             long: int = 0) -> np.ndarray:
+    """READS seeded read lengths, multiples of ``step``, within ``jitter``
+    of ``mean``; every tenth ``long`` (two kernel chunks: another key)."""
+    rng = np.random.default_rng(seed)
+    n = (mean + rng.integers(-jitter, jitter + 1, READS)) // step * step
+    if long:
+        n[5::10] = long
+    return n
+
+
+@dataclasses.dataclass
+class Case:
+    """A graphed streamer, its input and reads, the eager loop it replaces
+    and its JAX counterpart."""
+
+    make: object          # device -> port streamer
+    data: np.ndarray      # the capture (or multiplex), time on the last axis
+    lengths: np.ndarray   # the reads' lengths along that axis
+    feed: object          # (streamer, read) -> tuple of numpy outputs
+    eager: object         # () -> feed-like callable: the pre-graph loop
+    jax: object = None    # () -> feed-like callable, or (it, a hook that
+    #                       puts the JAX weights into a port streamer)
+    skip: int = 0         # leading samples the JAX comparison leaves out
+
+    def reads(self):
+        at = 0
+        for n in self.lengths:
+            yield self.data[..., at:at + n]
+            at += n
+
+
+class EagerLoop:
+    """The streamers' demodulate as the port ran it before its steps were
+    graphed: the residual cut, one call of the block function on a tensor
+    of the usable bytes, each output copied to the host on its own."""
+
+    def __init__(self, quantum: int, block_fn, state, empty):
+        self.quantum, self.block_fn, self.state = quantum, block_fn, state
+        self.empty = empty
+        self.pending = None
+
+    def __call__(self, buf):
+        data = buf if self.pending is None else np.concatenate(
+            [self.pending, buf], axis=-1)
+        usable = data.shape[-1] - data.shape[-1] % self.quantum
+        self.pending = data[..., usable:]
+        if usable == 0:
+            return self.empty
+        block = torch.from_numpy(np.ascontiguousarray(data[..., :usable]))
+        outs, self.state = self.block_fn(block, self.state)
+        return tuple(o.cpu().numpy() for o in outs)
+
+
+def _fused_case():
+    data = np.asarray(synth.synth_wbfm_u8(3_000_000, noise_std=0.02,
+                                          seed=1)[0], np.uint8)
+
+    def eager():
+        taps, h_poly = FF.make_kernel_params(device=CPU)
+        spec = FF.default_spec()
+
+        def fn(block, st):
+            carry, hist, phase = st
+            a, carry, hist = FF.demodulate_fused(block, phase, carry, hist,
+                                                 taps, h_poly, spec)
+            return (a,), (carry, hist, (phase + block.shape[-1] // 2) % 4)
+
+        return EagerLoop(CHUNK, fn, (FF.init_carry(CPU), torch.zeros(47), 0),
+                         (np.zeros(0, np.float32),))
+
+    def jax():
+        s = pallas_fm.PallasWbfmStreamer(interpret=True, rot_impl="broadcast")
+        return lambda b: (s.demodulate(b),)
+
+    return Case(lambda d: FF.FusedWbfmStreamer(device=d), data,
+                _lengths(50_000, 48_000, 2, 2, long=2 * CHUNK + 9_000),
+                lambda s, b: (s.demodulate(b),), eager, jax)
+
+
+def _fused_batch_case(phases):
+    """The batch at a phase a station (K1 reads the streamer's phase
+    tensor) or at one phase for all (the phase in the graph's key)."""
+    rows = np.stack([np.asarray(synth.synth_wbfm_u8(
+        2_600_000, noise_std=0.02, seed=s)[0], np.uint8) for s in (3, 4)])
+
+    def make(d):
+        s = FF.FusedWbfmBatchStreamer(2, device=d)
+        s.phases = phases
+        return s
+
+    def eager():
+        taps, h_poly = FF.make_kernel_params(device=CPU)
+        spec = FF.default_spec()
+
+        def fn(block, st):
+            carries, hists, ph = st
+            a, carries, hists = FF.demodulate_fused_batch(
+                block, ph, carries, hists, taps, h_poly, spec)
+            return (a,), (carries, hists,
+                          [(p + block.shape[-1] // 2) % 4 for p in ph])
+
+        return EagerLoop(CHUNK, fn, (FF.init_carry(CPU).repeat(2, 1, 1),
+                                     torch.zeros(2, 47), list(phases)),
+                         (np.zeros((2, 0), np.float32),))
+
+    def jax():
+        s = pallas_fm.PallasWbfmBatchStreamer(2, interpret=True,
+                                              rot_impl="broadcast")
+        s.phases = np.asarray(phases, np.int32)
+        return lambda b: (s.demodulate(b),)
+
+    return Case(make, rows, _lengths(50_000, 48_000, 2, 5,
+                                     long=2 * CHUNK + 9_000),
+                lambda s, b: (s.demodulate(b),), eager, jax)
+
+
+def _float_case(**kw):
+    data = np.asarray(synth.synth_wbfm_u8(130_000, noise_std=0.02,
+                                          seed=6)[0], np.uint8)
+    config = WbfmConfig(**kw)
+
+    def feed(s, b):
+        a = s.demodulate(b)
+        return (a, s.last_mpx) if config.emit_mpx else (a,)
+
+    def eager():
+        params = TW.WbfmParams(config, CPU)
+
+        def fn(block, st):
+            *outs, st = TW.demodulate_block(block, st, params, config)
+            return tuple(outs), st
+
+        empty = (np.zeros(0, np.float32),) * (2 if config.emit_mpx else 1)
+        return EagerLoop(2 * config.decim * config.resample_down, fn,
+                         TW.init_state(config, CPU), empty)
+
+    def jax():
+        s = JW.WbfmStreamer(JW.WbfmConfig(mxu_precision="f32", **kw))
+        return lambda b: feed(s, b)
+
+    return Case(lambda d: TW.WbfmStreamer(config, device=d), data,
+                _lengths(3_300, 700, 2, 7), feed, eager, jax)
+
+
+def _float_batch_case():
+    rows = np.stack([np.asarray(synth.synth_wbfm_u8(
+        100_000, noise_std=0.02, seed=s)[0], np.uint8) for s in (8, 9)])
+    config = WbfmConfig()
+
+    def eager():
+        params = TW.WbfmParams(config, CPU)
+
+        def fn(block, st):
+            a, st = TB.demodulate_batch(block, st, params, config)
+            return (a,), st
+
+        return EagerLoop(2 * config.decim, fn,
+                         TB.init_batch_state(config, 2, CPU),
+                         (np.zeros((2, 0), np.float32),))
+
+    def jax():
+        s = JB.WbfmBatchStreamer(2, JW.WbfmConfig(mxu_precision="f32"))
+        return lambda b: (s.demodulate(b),)
+
+    # lengths 3,000 +- 6: three block lengths (three JAX compiles), the
+    # unaligned resampler's t0 moving through many keys
+    return Case(lambda d: TB.WbfmBatchStreamer(2, config, device=d), rows,
+                _lengths(3_000, 6, 2, 10), lambda s, b: (s.demodulate(b),),
+                eager, jax)
+
+
+def _wideband_case(fused: bool):
+    u8, _ = synth.synth_multistation_u8(
+        1_600_000, 64 * 170_000, station_freqs=[3 * 170_000, -4 * 170_000],
+        audio_freqs=[1_000.0, 2_500.0], deviation=45_000.0)
+    data = np.asarray(u8, np.uint8)
+    config = WB.WidebandConfig(emit_mpx=True, **WB_CONFIG)
+
+    def feed(s, b):
+        return s.demodulate(b), s.last_mpx
+
+    def eager():
+        params = WB.make_params(config, device=CPU)
+        spec = WB.fused_spec(config)
+
+        def fn(block, st):
+            state, carry = st
+            if fused:
+                a, mpx, carry, quad, hist = WB.demodulate_block_fused(
+                    block, carry, state.quad, state.resamp.hist, params,
+                    config, spec)
+                state = WB.WidebandState(state.pfb, quad,
+                                         state.resamp._replace(hist=hist))
+            else:
+                a, mpx, state = WB.demodulate_block(block, state, params,
+                                                    config)
+            return (a, mpx), (state, carry)
+
+        quantum = spec.chunk_bytes if fused else 2 * 64 * 85
+        empty = (np.zeros((2, 0), np.float32),) * 2
+        from tpu_sdr_torch.ops import fused_channelizer as FC
+        return EagerLoop(quantum, fn, (WB.init_state(config, params),
+                                       FC.init_carry(spec, CPU)), empty)
+
+    def jax():
+        s = JWB.WidebandStreamer(JWB.WidebandConfig(emit_mpx=True,
+                                                    **WB_CONFIG),
+                                 use_pallas=fused, interpret=True)
+        return lambda b: feed(s, b)
+
+    return Case(lambda d: WB.WidebandStreamer(config, use_fused=fused,
+                                              device=d),
+                data, _lengths(30_000, 28_000, 2, 11, long=180_000), feed,
+                eager, jax)
+
+
+def _stereo_case():
+    u8, _, _ = synth.synth_wbfm_stereo_u8(80_000, capture_rate=1_020_000)
+    data = np.asarray(u8, np.uint8)
+    config = TS.StereoConfig(deemphasis_tau=75e-6, emit_mpx=True)
+
+    def feed(s, b):
+        return s.demodulate(b), s.last_mpx
+
+    def eager():
+        params = TS.make_params(config, device=CPU)
+
+        def fn(block, st):
+            a, mpx, st = TS.demodulate_block(block, st, params, config)
+            return (a, mpx), st
+
+        return EagerLoop(510, fn, TS.init_state(config, CPU),
+                         (np.zeros((2, 0), np.float32),
+                          np.zeros(0, np.float32)))
+
+    def jax():
+        s = JS.WbfmStereoStreamer(JS.StereoConfig(
+            base=JW.WbfmConfig(filter_mode="fir", decim=3, rate_out=340_000,
+                               mxu_precision="f32"),
+            deemphasis_tau=75e-6, emit_mpx=True))
+        return lambda b: feed(s, b)
+
+    return Case(lambda d: TS.WbfmStereoStreamer(config, device=d), data,
+                _lengths(2_100, 500, 2, 12), feed, eager, jax)
+
+
+def _mpx(n: int, seed: int = 13) -> np.ndarray:
+    """A multiplex at 170 kHz: a tone, the 19 kHz pilot and a seeded BPSK
+    at 57 kHz."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 170_000
+    bits = rng.integers(0, 2, int(n / 170_000 * 1187.5) + 2)
+    sign = np.where(bits[(t * 1187.5).astype(int)] == 0, 1.0, -1.0)
+    theta = 2 * np.pi * 19_000.0 * t
+    return (0.4 * np.sin(2 * np.pi * 1_000.0 * t) + 0.1 * np.cos(theta)
+            + 0.06 * sign * np.cos(3 * theta)).astype(np.float32)
+
+
+def _rds_case():
+    config = TR.RdsConfig()
+
+    def feed(s, b):
+        return s.process(b), np.float32(s.pilot_amp)
+
+    def eager():
+        params = TR.make_params(config, device=CPU)
+
+        def fn(block, st):
+            b152, amp, st = TR.baseband_block(block, st, params, config)
+            return (b152, amp), st
+
+        return EagerLoop(85, fn, TR.init_state(config, CPU), None)
+
+    def jax():
+        s = JR.RdsReceiver()
+        return lambda b: (s.process(b),)
+
+    return Case(lambda d: TR.RdsReceiver(config, device=d), _mpx(170_000),
+                _lengths(2_200, 500, 1, 14), feed, eager, jax)
+
+
+def _multimode_case(mode: str, **kw):
+    data = np.asarray(synth.synth_wbfm_u8(130_000, deviation=5_000.0,
+                                          noise_std=0.02, seed=15)[0],
+                      np.uint8)
+    config = TM.MultimodeConfig(mode=mode, **kw)
+
+    def feed(s, b):
+        return s.demodulate(b), np.float32(s.last_power or 0.0)
+
+    def eager():
+        params = TM.make_params(config, device=CPU)
+
+        def fn(block, st):
+            a, power, st = TM.demodulate_block(block, st, params, config)
+            return (a, power), st
+
+        return EagerLoop(1020, fn, TM.init_state(config, CPU), None)
+
+    def jax():
+        s = JM.MultimodeStreamer(JM.MultimodeConfig(mode=mode, **kw))
+
+        def port_weights(port):
+            port.params = convert.multimode_params_from_jax(s.params, config,
+                                                            device=CPU)
+
+        return (lambda b: (s.demodulate(b),)), port_weights
+
+    return Case(lambda d: TM.MultimodeStreamer(config, device=d), data,
+                _lengths(3_300, 700, 2, 16), feed, eager, jax, skip=32)
+
+
+CASES = {
+    "fused": _fused_case,
+    "fused_batch": lambda: _fused_batch_case([0, 3]),
+    "fused_batch_one_phase": lambda: _fused_batch_case([2, 2]),
+    "fir": lambda: _float_case(),
+    "fir_deemph_mpx": lambda: _float_case(deemphasis_tau=75e-6,
+                                          emit_mpx=True),
+    "boxcar": lambda: _float_case(filter_mode="boxcar"),
+    "boxcar_deemph": lambda: _float_case(filter_mode="boxcar",
+                                         deemphasis_tau=50e-6),
+    "float_batch": _float_batch_case,
+    "wideband_plain": lambda: _wideband_case(False),
+    "wideband_fused": lambda: _wideband_case(True),
+    "stereo": _stereo_case,
+    "rds": _rds_case,
+    "fm": lambda: _multimode_case("nbfm", deemphasis_tau=75e-6),
+    "am": lambda: _multimode_case("am", squelch_db=-40.0),
+    "usb": lambda: _multimode_case("usb", fine_tune_hz=120.0),
+    "lsb": lambda: _multimode_case("lsb"),
+}
+
+
+def _run(feed, reads):
+    return [feed(r) for r in reads]
+
+
+@pytest.fixture(scope="module")
+def cases():
+    return {}
+
+
+def _get(cases, name):
+    """(case, the static-buffer form's outputs a read, its streamer)."""
+    if name not in cases:
+        case = CASES[name]()
+        port = case.make(CPU)
+        got = _run(lambda b: case.feed(port, b), case.reads())
+        cases[name] = case, got, port
+    return cases[name]
+
+
+def _assert_same(exp, got, n=READS):
+    assert len(exp) == len(got) == n
+    for i, (e, g) in enumerate(zip(exp, got)):
+        for x, y in zip(e, g):
+            assert x.shape == y.shape and x.dtype == y.dtype, i
+            assert np.array_equal(x, y), f"read {i}"
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_static_buffer_form_equals_the_eager_streamer(cases, name):
+    case, got, port = _get(cases, name)
+    eager = case.eager()
+    exp = []
+    for r, g in zip(case.reads(), got):
+        e = eager(r)
+        # a read below one quantum leaves the streamer's measurement (the
+        # narrowband power, the pilot amplitude) as it was
+        exp.append(g if e is None else e[:len(g)])
+    _assert_same(exp, got)
+    # the reads crossed the residual path and changed key
+    assert port.graphs.captures >= 2
+    assert port.graphs.replays + port.graphs.captures == sum(
+        1 for g in got if g[0].shape[-1])
+    assert any(g[0].shape[-1] == 0 for g in got) or name not in (
+        "fused", "fused_batch", "fused_batch_one_phase", "wideband_fused")
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_disabled_gives_the_same_bits(cases, name):
+    case, got, _ = _get(cases, name)
+    port = case.make(CPU)
+    with graphs.disabled():
+        off = _run(lambda b: case.feed(port, b), case.reads())
+    assert port.graphs.captures == port.graphs.replays == 0
+    _assert_same(off, got)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_matches_jax(cases, name):
+    case, got, _ = _get(cases, name)
+    jax = case.jax()
+    if isinstance(jax, tuple):  # the port again, on the JAX weights
+        jax, port_weights = jax
+        port = case.make(CPU)
+        port_weights(port)
+        got = _run(lambda b: case.feed(port, b), case.reads())
+    exp = _run(jax, case.reads())
+    for k in range(len(exp[0])):
+        e = np.concatenate([x[k] for x in exp], axis=-1)
+        g = np.concatenate([x[k] for x in got], axis=-1)
+        assert e.shape == g.shape, (k, e.shape, g.shape)
+        s = _snr_db(e[..., case.skip:], g[..., case.skip:])
+        assert s >= 100.0, f"{name} output {k}: {s:.1f} dB"
+
+
+@pytest.mark.parametrize("name", ["fused", "fir_deemph_mpx", "wideband_fused",
+                                  "stereo", "usb", "rds"])
+def test_checkpoint_mid_stream_resumes_bit_equal(cases, name, tmp_path):
+    """A checkpoint taken after read 30 (the carries are the static
+    buffers then), loaded into a fresh streamer and into one whose steps
+    already ran (its static buffers must take the loaded carries)."""
+    case, got, _ = _get(cases, name)
+    reads = list(case.reads())
+    first = case.make(CPU)
+    for r in reads[:30]:
+        case.feed(first, r)
+    path = str(tmp_path / "ck.npz")
+    C.save_stream_state(path, first)
+    for warm in (0, 5):
+        resumed = case.make(CPU)
+        for r in reads[:warm]:
+            case.feed(resumed, r)
+        C.load_stream_state(path, resumed)
+        _assert_same(got[30:], [case.feed(resumed, r) for r in reads[30:]],
+                     READS - 30)
+
+
+def test_fused_batch_phases_live_on_the_device_and_checkpoint_as_a_list(
+        tmp_path):
+    s = FF.FusedWbfmBatchStreamer(3, device=CPU)
+    s.phases = np.array([1, 2, 3])
+    assert s.phases == [1, 2, 3]
+    assert s._phases.dtype == torch.int32 and s._phases.device == CPU
+    s.demodulate(np.zeros((3, CHUNK + 2), np.uint8))
+    assert s.phases == [1, 2, 3]  # a chunk is a multiple of 4 samples
+    path = str(tmp_path / "batch.npz")
+    C.save_stream_state(path, s)
+    saved = np.load(path)
+    assert int(saved["phases.__n__"]) == 3  # one int a station, as before
+    assert [int(saved[f"phases.{i}"]) for i in range(3)] == [1, 2, 3]
+    fresh = FF.FusedWbfmBatchStreamer(3, device=CPU)
+    C.load_stream_state(path, fresh)
+    assert fresh.phases == [1, 2, 3] and torch.is_tensor(fresh._phases)
+    # a checkpoint of the list form (no tensor anywhere) loads the same way
+    np.savez(str(tmp_path / "old.npz"), **{k: saved[k] for k in saved.files})
+    old = FF.FusedWbfmBatchStreamer(3, device=CPU)
+    C.load_stream_state(str(tmp_path / "old.npz"), old)
+    assert old.phases == [1, 2, 3]
+
+
+@pytest.mark.parametrize("mode", ["fir", "boxcar"])
+def test_float_chain_keys_at_the_cli_read(mode):
+    """At 262,144-byte reads the float chain sees at most 4 keys: 257 or
+    258 quanta of 1,020 bytes, at fs/4 phase 0 or 2."""
+    data = np.asarray(synth.synth_wbfm_u8(12 * 131_072, seed=17)[0],
+                      np.uint8)
+    s = TW.WbfmStreamer(WbfmConfig(filter_mode=mode), device=CPU)
+    for i in range(12):
+        s.demodulate(data[i * 262_144:(i + 1) * 262_144])
+    assert 2 <= len(s.graphs.keys) <= 4 and s.graphs.captures <= 4
+    assert {k[0][0] for k in s.graphs.keys} <= {0, 2}
+    assert {k[1][0][0][0] for k in s.graphs.keys} <= {257 * 1020, 258 * 1020}
+
+
+def test_float_batch_keys_do_not_follow_the_resampler_index():
+    """The station batch cuts blocks to 12 bytes, so at 262,144-byte reads
+    the unaligned resampler's t0 moves every other read; it goes in as a
+    device input, and the key holds only the output count: a few keys,
+    most reads replays."""
+    rows = np.stack([np.asarray(synth.synth_wbfm_u8(
+        6 * 131_072, seed=s)[0], np.uint8) for s in (19, 20)])
+    s = TB.WbfmBatchStreamer(2, device=CPU)
+    for i in range(12):
+        s.demodulate(rows[:, (i % 6) * 262_144:(i % 6 + 1) * 262_144])
+    assert len({st for st, _, _ in s.graphs.keys}) <= 4
+    assert s.graphs.captures <= 4 and s.graphs.replays >= 8
+
+
+def test_fused_path_counts_no_launch_on_the_cpu():
+    """On the CPU the wrappers take their plain versions, so the counters
+    stay at 0 while every read with a chunk is one static-buffer step (the
+    card's gate, one K1 and one K2 a replay, is in test_torch_cuda.py)."""
+    data = np.asarray(synth.synth_wbfm_u8(4 * CHUNK // 2, seed=18)[0],
+                      np.uint8)
+    FF.reset_launch_counts()
+    s = FF.FusedWbfmStreamer(device=CPU)
+    for i in range(4):
+        s.demodulate(data[i * CHUNK:(i + 1) * CHUNK])
+    assert FF.LAUNCHES == {"fm_front": 0, "fm_resample": 0}
+    assert (s.graphs.captures, s.graphs.replays) == (1, 3)
+
+
+def _toy_step(static, inputs, carries):
+    x, = inputs
+    acc, = carries
+    y = x * static + acc
+    return [y, y.sum()], [y[-1:].clone()], static + 1
+
+
+def test_helper_evicts_the_least_recently_used_key(monkeypatch):
+    monkeypatch.setattr(graphs, "MAX_KEYS", 2)
+    g = graphs.StepGraphs("toy", _toy_step, CPU)
+    acc = torch.zeros(1)
+    for k in (1, 2, 1, 3):
+        _, (acc,), aux = g(k, [np.ones(4, np.float32)], [acc])
+        assert aux == k + 1
+    assert [key[0] for key in g.keys] == [1, 3]
+    assert g.captures == 3 and g.replays == 1
+
+
+def test_helper_outputs_do_not_alias_its_buffers():
+    """Outputs come back as arrays of their own; carries assigned from
+    outside are copied into the static ones, never written."""
+    g = graphs.StepGraphs("toy", _toy_step, CPU)
+    start = torch.full((1,), 5.0)
+    (y, total), (acc,), _ = g(2, [np.arange(3, dtype=np.float32)], [start])
+    np.testing.assert_array_equal(y, [5.0, 7.0, 9.0])
+    assert total == np.float32(21.0) and acc is not start
+    (y2, _), (acc2,), _ = g(2, [np.arange(3, dtype=np.float32)], [acc])
+    assert acc2 is acc and float(acc) == 13.0
+    np.testing.assert_array_equal(y, [5.0, 7.0, 9.0])  # not rewritten
+    assert float(start) == 5.0
+    (y3, _), _, _ = g(2, [np.zeros(3, np.float32)], [torch.zeros(1)])
+    np.testing.assert_array_equal(y3, [0.0, 0.0, 0.0])
+
+
+def test_helper_checks_the_carry_count():
+    def bad(static, inputs, carries):
+        return [inputs[0]], [], None
+
+    with pytest.raises(ValueError, match="toy"):
+        graphs.StepGraphs("toy", bad, CPU)((), [np.ones(2)], [torch.zeros(1)])
+
+
+def test_ssb_mixer_index_as_a_tensor_gives_the_same_bits():
+    n, coef = 40_000, float(2 * np.pi * (-1_500.0 - 120) / 170_000)
+    for phase in (0, 12_345, 169_999):
+        a = TM._mixer(phase, n, coef, CPU)
+        b = TM._mixer(torch.tensor(float(phase)), n, coef, CPU)
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), phase
+
+
+def test_state_split_and_join_round_trip():
+    config = TS.StereoConfig()
+    state = TS.init_state(config, CPU)
+    ints, tensors = graphs.split_state(state)
+    assert ints == (0, 0, 0)  # the front's phase, t0 and accumulator
+    back = graphs.join_state(state, ints, tensors)
+    assert type(back) is TS.StereoState and back == state
+
+
+def test_soak_wbfm_streamer_2000_blocks():
+    """The port's twin of ``tests/test_soak.py``'s float-chain soak: 2,000
+    blocks of 5,100 bytes (the residual path cycles, the key changes)
+    through the graphed step == one-shot demodulation, and a clean tone
+    at the end."""
+    n_blocks, block_bytes = 2000, 5_100
+    u8, _ = synth.synth_wbfm_u8(n_blocks * block_bytes // 2, noise_std=0.01)
+    data = np.asarray(u8, np.uint8)
+    streamed = TW.WbfmStreamer(device=CPU)
+    got = np.concatenate([
+        streamed.demodulate(data[i * block_bytes:(i + 1) * block_bytes])
+        for i in range(n_blocks)])
+    exp = TW.WbfmStreamer(device=CPU).demodulate(data)
+    n = min(len(got), len(exp))
+    assert n > 0.95 * len(exp)
+    np.testing.assert_allclose(got[:n], exp[:n], rtol=1e-5, atol=1e-6)
+    assert len(streamed.graphs.keys) <= 6
+    tail = got[len(got) // 2:].astype(np.float64)
+    assert synth.tone_snr(tail, 1_000.0, 32_000) > 40.0
+
+
+def test_soak_exact_chain_1000_blocks():
+    """The port's twin of ``tests/test_soak.py``'s integer-chain soak: the
+    same split twice is bit-identical; against one shot only the samples
+    the block starts touch move, boundedly, and the rate does not drift."""
+    n_blocks, block_bytes = 1000, 1_024
+    rng = np.random.default_rng(7)
+    data = rng.integers(0, 256, n_blocks * block_bytes, dtype=np.uint8)
+
+    def stream():
+        s = TE.WbfmExactStreamer(device=CPU)
+        return np.concatenate(
+            [s.demodulate(data[i * block_bytes:(i + 1) * block_bytes])
+             for i in range(n_blocks)])
+
+    got = stream()
+    np.testing.assert_array_equal(got, stream())
+    exp = TE.WbfmExactStreamer(device=CPU).demodulate(data)
+    n = min(len(got), len(exp))
+    assert n > 0.95 * len(exp)
+    diff = np.abs(got[:n].astype(np.int32) - exp[:n].astype(np.int32))
+    assert diff.max() <= 200, f"max {diff.max()}"
+    assert (diff > 0).mean() < 0.10
+    first, second = diff[: n // 2], diff[n // 2:]
+    assert abs((second > 0).mean() - (first > 0).mean()) < 0.05

@@ -3,7 +3,7 @@ its plain version against the end-of-shard carry of the previous form of
 the chain (the JAX chain's formula on the last 128 samples) and against
 K1's plain version's last T-1 discriminator outputs; the fused sharded
 row making one record build and one halo exchange a row; the streamer
-staying eager off the card; ``shard_time`` writing into given shards.
+staying eager off the card; ``time_cuts`` and ``shard_time``.
 The record kernel itself is held to this plain version on the card in
 tests/test_torch_cuda.py.
 """
@@ -154,17 +154,17 @@ def test_cpu_streamer_stays_eager():
     assert streamer.step_graph is None
 
 
-def test_shard_time_writes_into_given_shards():
+def test_time_cuts_are_views_that_shard_time_places():
     mesh = M.make_mesh(2, 2, devices=[CPU] * 4)
-    rng = np.random.default_rng(3)
-    first = rng.integers(0, 256, (4, 64), dtype=np.uint8)
-    second = rng.integers(0, 256, (4, 64), dtype=np.uint8)
-    shards = M.shard_time(mesh, first)
-    ptrs = [[x.data_ptr() for x in row] for row in shards]
-    assert M.shard_time(mesh, second, out=shards) is shards
-    assert [[x.data_ptr() for x in row] for row in shards] == ptrs
+    block = np.random.default_rng(3).integers(0, 256, (4, 64),
+                                              dtype=np.uint8)
+    cuts = M.time_cuts(mesh, block)
+    shards = M.shard_time(mesh, block)
     for d in range(2):
         for s in range(2):
-            np.testing.assert_array_equal(
-                shards[d][s].numpy(), second[2 * d:2 * d + 2,
-                                             32 * s:32 * s + 32])
+            part = block[2 * d:2 * d + 2, 32 * s:32 * s + 32]
+            assert np.shares_memory(cuts[d][s], block)
+            np.testing.assert_array_equal(cuts[d][s], part)
+            np.testing.assert_array_equal(shards[d][s].numpy(), part)
+    with pytest.raises(ValueError):
+        M.time_cuts(mesh, block[:3])

@@ -28,6 +28,10 @@ The sharded chains' streaming carries keep the JAX shapes: the fused
 chain's ``(kernel_edge (stations, 4, 128), rs_edge (stations, T-1))`` and
 the float chain's ``XlaStreamCarry``; a ``ShardedPallasStreamer`` hands its
 carries to a ``ShardedFusedStreamer`` and back.
+
+Every array handed out is a copy: a streamer's carries are the static
+buffers of its graphed step (``utils.graphs``), which its next call
+rewrites in place.
 """
 
 from __future__ import annotations
@@ -92,7 +96,7 @@ def state_to_jax(carry: torch.Tensor, resamp_hist: torch.Tensor, phase):
     """The port's fused state (one station or a batch) -> numpy (state,
     resamp_hist, phase) for a ``PallasWbfmStreamer`` (or the batch's, the
     phases an int32 array)."""
-    return (carry.cpu().numpy(), resamp_hist.cpu().numpy(),
+    return (_np(carry), _np(resamp_hist),
             int(phase) if isinstance(phase, int)
             else np.asarray(phase, dtype=np.int32))
 
@@ -132,7 +136,7 @@ def wbfm_state_to_jax(state: M.WbfmState, stations: int | None = None):
     pre_im), (hist, t0), (now, acc), (y_prev,)), the ints as int32 (one a
     station when ``stations`` is given)."""
     def n(x):
-        return x.cpu().numpy()
+        return _np(x)
 
     def i(v):
         return np.int32(v) if stations is None else np.full(stations, v,
@@ -160,7 +164,12 @@ def exact_state_from_jax(state, *, device: str | torch.device
 def exact_state_to_jax(state: WE.WbfmExactState):
     """The port's exact-chain state -> numpy int32 nested as the JAX
     ``WbfmExactState``'s fields."""
-    return tuple(tuple(x.cpu().numpy() for x in part) for part in state)
+    return tuple(tuple(_np(x) for x in part) for part in state)
+
+
+def _np(x: torch.Tensor) -> np.ndarray:
+    """A tensor's values as a numpy array of its own."""
+    return x.detach().to("cpu", copy=True).numpy()
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -198,7 +207,7 @@ def pfb_carry_from_jax(carry, *, device: str | torch.device) -> torch.Tensor:
 
 
 def pfb_carry_to_jax(carry: torch.Tensor) -> np.ndarray:
-    return carry.cpu().numpy()
+    return _np(carry)
 
 
 def wideband_state_from_jax(state, *, device: str | torch.device
@@ -218,7 +227,7 @@ def wideband_state_to_jax(state: WB.WidebandState):
     ``WidebandState``'s fields: ((hist_re, hist_im), (pre_re, pre_im),
     (hist,))."""
     def n(x):
-        return x.cpu().numpy()
+        return _np(x)
 
     return ((n(state.pfb.hist_re), n(state.pfb.hist_im)),
             (n(state.quad.pre_re), n(state.quad.pre_im)),
@@ -241,7 +250,7 @@ def sharded_carry_from_jax(kernel_edge, rs_edge, *,
 
 def sharded_carry_to_jax(kernel_edge: torch.Tensor, rs_edge: torch.Tensor
                          ) -> tuple[np.ndarray, np.ndarray]:
-    return kernel_edge.cpu().numpy(), rs_edge.cpu().numpy()
+    return _np(kernel_edge), _np(rs_edge)
 
 
 def xla_carry_from_jax(carry, *, device: str | torch.device
@@ -252,7 +261,7 @@ def xla_carry_from_jax(carry, *, device: str | torch.device
 
 def xla_carry_to_jax(carry: XlaStreamCarry) -> tuple[np.ndarray, ...]:
     """The port's ``XlaStreamCarry`` -> numpy in the JAX field order."""
-    return tuple(c.cpu().numpy() for c in carry)
+    return tuple(_np(c) for c in carry)
 
 
 def sharded_streamer_from_jax(streamer, mesh: Mesh) -> ShardedFusedStreamer:
@@ -293,7 +302,7 @@ def _fir(state, device) -> F.FirState:
 
 
 def _fir_to_jax(state: F.FirState):
-    return (state.hist_re.cpu().numpy(), state.hist_im.cpu().numpy())
+    return (_np(state.hist_re), _np(state.hist_im))
 
 
 def stereo_params_from_jax(params, config: ST.StereoConfig, *,
@@ -329,7 +338,7 @@ def stereo_state_from_jax(state, *, device: str | torch.device
 def stereo_state_to_jax(state: ST.StereoState):
     """The port's ``StereoState`` -> numpy nested as the JAX one's fields."""
     def n(x):
-        return x.cpu().numpy()
+        return _np(x)
 
     return (wbfm_state_to_jax(state.front),
             *(_fir_to_jax(s) for s in (state.lpf_s, state.bpf_p, state.bpf_c,
@@ -357,7 +366,7 @@ def rds_state_from_jax(state, *, device: str | torch.device) -> R.RdsState:
 
 def rds_state_to_jax(state: R.RdsState):
     return (_fir_to_jax(state.bpf_p), _fir_to_jax(state.bpf_s),
-            _fir_to_jax(state.lpf), (state.resamp.hist.cpu().numpy(),))
+            _fir_to_jax(state.lpf), (_np(state.resamp.hist),))
 
 
 def multimode_params_from_jax(params, config: MM.MultimodeConfig, *,
@@ -392,7 +401,7 @@ def multimode_state_to_jax(state: MM.MultimodeState):
     """The port's ``MultimodeState`` -> numpy nested as the JAX one's
     fields, the ints as int32."""
     def n(x):
-        return x.cpu().numpy()
+        return _np(x)
 
     return ((np.int32(state.rot),), _fir_to_jax(state.fir),
             _fir_to_jax(state.chan), (n(state.quad.pre_re),
@@ -408,4 +417,4 @@ def psd_state_from_jax(state, *, device: str | torch.device) -> SP.PsdState:
 
 
 def psd_state_to_jax(state: SP.PsdState) -> tuple[np.ndarray, np.float32]:
-    return state.acc.cpu().numpy(), np.float32(state.count)
+    return _np(state.acc), np.float32(state.count)

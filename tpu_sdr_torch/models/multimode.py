@@ -33,7 +33,7 @@ import torch
 from torch import nn
 
 from tpu_sdr_torch.ops import fm as F
-from tpu_sdr_torch.utils import design, firdes
+from tpu_sdr_torch.utils import design, firdes, graphs
 
 
 @dataclass(frozen=True)
@@ -123,19 +123,25 @@ def init_state(config: MultimodeConfig, device: str | torch.device
         0, 0, F.deemph_init(device))
 
 
-def _mixer(phase: int, n: int, coef: float, device):
+def _mixer(phase, n: int, coef: float, device):
     """cos and sin of ``coef * (phase + k)``, k < n, in float32 as the JAX
     model builds them: the index in float32, the coefficient rounded to
-    float32, one float32 product."""
+    float32, one float32 product.  ``phase``: an int, or a 0-d float32
+    tensor holding it (exact below 2**24: the same bits)."""
     k = phase + torch.arange(n, dtype=torch.float32, device=device)
     ph = k * float(np.float32(coef))
     return torch.cos(ph), torch.sin(ph)
 
 
 def demodulate_block(buf: torch.Tensor, state: MultimodeState,
-                     params: MultimodeParams, config: MultimodeConfig):
+                     params: MultimodeParams, config: MultimodeConfig,
+                     ssb_index: torch.Tensor | None = None):
     """u8 I/Q block (a multiple of ``2*decim*down`` bytes) -> (audio,
-    channel power (a 0-d tensor), new state)."""
+    channel power (a 0-d tensor), new state).  ``ssb_index``: the state's
+    two SSB phase indices as a (2,) float32 tensor on the device, which the
+    mixers then read in their place (the graphed streamer's input: the
+    indices move every block, so they cannot be part of its key); the new
+    state's indices are still the state's ints moved on."""
     up, down = config.resample_up, config.resample_down
     quantum = 2 * config.decim * down
     if buf.shape[-1] == 0 or buf.shape[-1] % quantum:
@@ -160,7 +166,8 @@ def demodulate_block(buf: torch.Tensor, state: MultimodeState,
         shift = (-config.audio_bw / 2 if config.mode == "usb"
                  else config.audio_bw / 2)
         shift1 = shift - round(config.fine_tune_hz)
-        c, s = _mixer(state.ssb_phase, n,
+        c, s = _mixer(state.ssb_phase if ssb_index is None else
+                      ssb_index[0], n,
                       2 * np.pi * (shift1 / config.rate_out), dev)
         sr = re * c - im * s
         si = re * s + im * c
@@ -173,7 +180,8 @@ def demodulate_block(buf: torch.Tensor, state: MultimodeState,
         sr32, si32, chan = F.fir_decimate_mxu(
             sr32, si32, params.chan_W, config.channel_taps, 1, state.chan)
         m = sr32.shape[-1]
-        c2, s2 = _mixer(state.ssb_phase2, m,
+        c2, s2 = _mixer(state.ssb_phase2 if ssb_index is None else
+                        ssb_index[1], m,
                         2 * np.pi * (shift / config.rate_resample), dev)
         audio = sr32 * c2 + si32 * s2
         ssb_phase2 = (state.ssb_phase2 + m) % config.rate_resample
@@ -222,7 +230,12 @@ class MultimodeStreamer:
     twin of ``WbfmStreamer``).  Each call that consumes at least one
     quantum takes one measurement: ``last_power``, ``last_squelch_open``
     and ``n_measurements`` (a call below one quantum leaves them stale),
-    which the scan loop reads."""
+    which the scan loop reads.
+
+    The step runs through ``utils.graphs``: one CUDA graph replay a call
+    on the card, keyed on the block's length and the fs/4 phase.  The SSB
+    modes' mixer indices move every block, so they go in as a device
+    input beside the block, and the host moves the state's ints on."""
 
     def __init__(self, config: MultimodeConfig | None = None, *,
                  device: str | torch.device):
@@ -235,6 +248,16 @@ class MultimodeStreamer:
         self.last_power: float | None = None
         self.last_squelch_open: bool = True
         self.n_measurements: int = 0
+        self.graphs = graphs.StepGraphs("MultimodeStreamer", self._step,
+                                        self.device)
+
+    def _step(self, ints, inputs, carries):
+        state = graphs.join_state(self.state, ints, carries)
+        audio, power, new = demodulate_block(
+            inputs[0], state, self.params, self.config,
+            inputs[1] if len(inputs) > 1 else None)
+        new_ints, new_carries = graphs.split_state(new)
+        return [audio, power], new_carries, new_ints
 
     def demodulate(self, buf: np.ndarray) -> np.ndarray:
         data = np.concatenate([self._pending, np.asarray(buf, np.uint8)])
@@ -242,15 +265,29 @@ class MultimodeStreamer:
         self._pending = data[usable:]
         if usable == 0:
             return np.zeros(0, np.float32)
-        audio, power, self.state = demodulate_block(
-            torch.from_numpy(data[:usable]).to(self.device), self.state,
-            self.params, self.config)
+        state = self.state
+        inputs = [data[:usable]]
+        if self.config.mode in ("usb", "lsb"):
+            # the key sees indices 0; the step's ints are then the moves
+            inputs.append(np.array([state.ssb_phase, state.ssb_phase2],
+                                   np.float32))
+            state = state._replace(ssb_phase=0, ssb_phase2=0)
+        ints, carries = graphs.split_state(state)
+        (audio, power), carries, ints = self.graphs(ints, inputs, carries)
+        new = graphs.join_state(state, ints, carries)
+        if self.config.mode in ("usb", "lsb"):
+            new = new._replace(
+                ssb_phase=(self.state.ssb_phase + new.ssb_phase)
+                % self.config.rate_out,
+                ssb_phase2=(self.state.ssb_phase2 + new.ssb_phase2)
+                % self.config.rate_resample)
+        self.state = new
         self.last_power = float(power)
         self.last_squelch_open = (
             self.config.squelch_db is None
             or self.last_power > 10.0 ** (self.config.squelch_db / 10.0))
         self.n_measurements += 1
-        return audio.cpu().numpy()
+        return audio
 
     def reset(self) -> None:
         """Drop all streaming carries (a scan-mode retune: samples before

@@ -34,7 +34,7 @@ import torch
 from torch import nn
 
 from tpu_sdr_torch.ops import fm as F
-from tpu_sdr_torch.utils import design, firdes
+from tpu_sdr_torch.utils import design, firdes, graphs
 
 RDS_RATE = 1187.5
 RESAMPLE_FS = 152_000          # 128 samples per data bit, 64 per half-symbol
@@ -166,8 +166,10 @@ def decode_bits(b152: np.ndarray, phase: int | None = None) -> np.ndarray:
 
 class RdsReceiver:
     """Feed multiplex blocks (the WBFM discriminator output, numpy), get
-    the 152 kHz RDS baseband back (numpy).  Each call takes one sync for
-    the pilot amplitude and one for the baseband."""
+    the 152 kHz RDS baseband back (numpy).  The baseband step runs through
+    ``utils.graphs`` (one CUDA graph replay a call on the card), and the
+    pilot amplitude comes back in the same D2H copy as the baseband: one
+    sync a call."""
 
     def __init__(self, config: RdsConfig | None = None, *,
                  device: str | torch.device):
@@ -177,6 +179,14 @@ class RdsReceiver:
         self.state = init_state(self.config, self.device)
         self._pending = np.zeros(0, np.float32)
         self.pilot_amp = 0.0  # last block's 19 kHz pilot amplitude estimate
+        self.graphs = graphs.StepGraphs("RdsReceiver", self._step,
+                                        self.device)
+
+    def _step(self, _static, inputs, carries):
+        state = graphs.join_state(self.state, (), carries)
+        b152, amp, new = baseband_block(inputs[0], state, self.params,
+                                        self.config)
+        return [b152, amp], graphs.split_state(new)[1], None
 
     def process(self, mpx: np.ndarray) -> np.ndarray:
         """Multiplex samples in -> 152 kHz RDS baseband out (stream-safe)."""
@@ -186,11 +196,11 @@ class RdsReceiver:
         self._pending = data[usable:]
         if usable == 0:
             return np.zeros(0, np.float32)
-        b152, amp, self.state = baseband_block(
-            torch.from_numpy(data[:usable]).to(self.device), self.state,
-            self.params, self.config)
+        (b152, amp), carries, _ = self.graphs(
+            (), [data[:usable]], graphs.split_state(self.state)[1])
+        self.state = graphs.join_state(self.state, (), carries)
         self.pilot_amp = float(amp)
-        return b152.cpu().numpy()
+        return b152
 
 
 # ---------------------------------------------------------------------------

@@ -29,7 +29,7 @@ import torch
 from torch import nn
 
 from tpu_sdr_torch.ops import fm as F
-from tpu_sdr_torch.utils import design
+from tpu_sdr_torch.utils import design, graphs
 from tpu_sdr_torch.utils.design import WbfmConfig
 
 
@@ -71,11 +71,14 @@ def init_state(config: WbfmConfig, device: torch.device) -> WbfmState:
 
 
 def demodulate_block(buf: torch.Tensor, state: WbfmState, params: WbfmParams,
-                     config: WbfmConfig):
+                     config: WbfmConfig, index: torch.Tensor | None = None):
     """One u8 I/Q block (its byte length a positive multiple of
     ``2*decim``; a leading station axis with a stacked state runs a batch)
     -> (audio f32, new_state), or (audio, mpx, new_state) with
-    ``config.emit_mpx``."""
+    ``config.emit_mpx``.  ``index``: the state's ``(resamp.t0,
+    box_resamp.acc)`` as a (2,) int64 tensor on the device, which the
+    unaligned resamplers' index arithmetic then reads (the graphed
+    streamers' input: those ints move every unaligned block)."""
     nbytes = buf.shape[-1]
     if nbytes == 0 or nbytes % (2 * config.decim):
         raise ValueError(f"block of {nbytes} bytes is not a positive "
@@ -111,14 +114,16 @@ def demodulate_block(buf: torch.Tensor, state: WbfmState, params: WbfmParams,
                                           y.new_zeros(*y.shape[:-1], 0)))
     elif boxcar:
         audio, box_resamp = F.boxcar_resample_f32(
-            y, box_resamp, config.rate_out, config.rate_resample)
+            y, box_resamp, config.rate_out, config.rate_resample,
+            None if index is None else index[1])
     elif aligned:
         audio, rs = F.aligned_resample(y, params.resamp_V, up, down,
                                        F.AlignedResampleState(resamp.hist))
         resamp = F.ResampleState(rs.hist, resamp.t0)
     else:
         audio, resamp = F.polyphase_resample(y, params.resamp_poly, up, down,
-                                             resamp)
+                                             resamp,
+                                             None if index is None else index[0])
     new_state = WbfmState(rot, fir, quad, resamp, box_resamp, deemph)
     if config.emit_mpx:
         return audio, mpx, new_state
@@ -130,7 +135,16 @@ class WbfmStreamer:
     to a multiple of ``2*decim*resample_down`` bytes so every call stays on
     the aligned resampler path; the residual bytes lead the next call.
     With ``config.emit_mpx`` each call also leaves the block's multiplex
-    in ``last_mpx``."""
+    in ``last_mpx``.
+
+    The step runs through ``utils.graphs``: one CUDA graph replay a call
+    on the card, keyed on the block's length, the fs/4 phase and the
+    unaligned resamplers' output counts.  Their indices (``t0``, the
+    boxcar accumulator) move with every unaligned block, so they go in as
+    a device input, not into the key; each moves by an amount the key
+    fixes, which the host adds."""
+
+    _demodulate = staticmethod(demodulate_block)
 
     def __init__(self, config: WbfmConfig | None = None, *,
                  device: str | torch.device):
@@ -140,6 +154,40 @@ class WbfmStreamer:
         self.state = init_state(self.config, self.device)
         self._pending = np.zeros(0, dtype=np.uint8)
         self.last_mpx: np.ndarray | None = None  # set when config.emit_mpx
+        self.graphs = graphs.StepGraphs(type(self).__name__, self._step,
+                                        self.device)
+
+    def _step(self, _key, inputs, carries):
+        """The graphed step: ``demodulate_block`` on the state rebuilt from
+        the calling block's ints and the carries; its aux is the ints
+        before and after."""
+        ints = graphs.split_state(self.state)[0]
+        state = graphs.join_state(self.state, ints, carries)
+        *outputs, new = self._demodulate(
+            inputs[0], state, self.params, self.config,
+            inputs[1] if len(inputs) > 1 else None)
+        new_ints, new_carries = graphs.split_state(new)
+        return outputs, new_carries, (ints, new_ints)
+
+    def _run(self, block: np.ndarray) -> list[np.ndarray]:
+        st, cfg = self.state, self.config
+        n = block.shape[-1] // (2 * cfg.decim)
+        inputs = [block]
+        count = None
+        if n % cfg.resample_down:  # the unaligned resamplers
+            inputs.append(np.array([st.resamp.t0, st.box_resamp.acc],
+                                   np.int64))
+            count = (F.boxcar_count(n, st.box_resamp.acc, cfg.rate_out,
+                                    cfg.rate_resample)
+                     if cfg.filter_mode == "boxcar" else
+                     F.polyphase_count(n, cfg.resample_up, cfg.resample_down,
+                                       st.resamp.t0))
+        ints, carries = graphs.split_state(st)
+        outputs, carries, (before, after) = self.graphs(
+            (st.rot, count), inputs, carries)
+        ints = tuple(i + b - a for i, a, b in zip(ints, before, after))
+        self.state = graphs.join_state(st, ints, carries)
+        return outputs
 
     def demodulate(self, buf: np.ndarray) -> np.ndarray:
         data = np.concatenate([self._pending, np.asarray(buf, dtype=np.uint8)])
@@ -150,9 +198,7 @@ class WbfmStreamer:
             if self.config.emit_mpx:
                 self.last_mpx = np.zeros(0, dtype=np.float32)
             return np.zeros(0, dtype=np.float32)
-        block = torch.from_numpy(data[:usable]).to(self.device)
-        out = demodulate_block(block, self.state, self.params, self.config)
-        self.state = out[-1]
+        out = self._run(data[:usable])
         if self.config.emit_mpx:
-            self.last_mpx = out[1].cpu().numpy()
-        return out[0].cpu().numpy()
+            self.last_mpx = out[1]
+        return out[0]

@@ -21,13 +21,15 @@ from tpu_sdr_torch.utils.design import WbfmConfig
 
 
 def demodulate_batch(bufs: torch.Tensor, states: wbfm.WbfmState,
-                     params: wbfm.WbfmParams, config: WbfmConfig):
+                     params: wbfm.WbfmParams, config: WbfmConfig,
+                     index: torch.Tensor | None = None):
     """(stations, bytes) u8 + stacked states -> (audio (stations, m),
-    stacked states), or (audio, mpx, states) with ``config.emit_mpx``."""
+    stacked states), or (audio, mpx, states) with ``config.emit_mpx``
+    (``index`` as in ``wbfm.demodulate_block``)."""
     if bufs.dim() != 2:
         raise ValueError(f"a station batch is (stations, bytes), not "
                          f"{tuple(bufs.shape)}")
-    return wbfm.demodulate_block(bufs, states, params, config)
+    return wbfm.demodulate_block(bufs, states, params, config, index)
 
 
 def init_batch_state(config: WbfmConfig, stations: int,
@@ -46,17 +48,20 @@ def init_batch_state(config: WbfmConfig, stations: int,
     return stack(one)
 
 
-class WbfmBatchStreamer:
+class WbfmBatchStreamer(wbfm.WbfmStreamer):
     """The station batch's host wrapper: feed (stations, bytes) u8, receive
     (stations, m) float audio.  Blocks are cut to a multiple of
     ``2*decim`` bytes, as JAX's batch cuts them, so calls of other lengths
-    run the unaligned resamplers; the residual leads the next call."""
+    run the unaligned resamplers; the residual leads the next call.  The
+    step is the one-station streamer's on :func:`demodulate_batch`, graphed
+    the same way: keyed on the block's shape, the fs/4 phase and the
+    unaligned resamplers' output count, their indices a device input."""
+
+    _demodulate = staticmethod(demodulate_batch)
 
     def __init__(self, stations: int, config: WbfmConfig | None = None, *,
                  device: str | torch.device):
-        self.config = config or WbfmConfig()
-        self.device = torch.device(device)
-        self.params = wbfm.WbfmParams(self.config, self.device)
+        super().__init__(config, device=device)
         self.stations = stations
         self.state = init_batch_state(self.config, stations, self.device)
         self._pending = np.zeros((stations, 0), dtype=np.uint8)
@@ -69,8 +74,4 @@ class WbfmBatchStreamer:
         self._pending = data[:, usable:]
         if usable == 0:
             return np.zeros((self.stations, 0), np.float32)
-        block = torch.from_numpy(np.ascontiguousarray(data[:, :usable])
-                                 ).to(self.device)
-        out = demodulate_batch(block, self.state, self.params, self.config)
-        self.state = out[-1]
-        return out[0].cpu().numpy()
+        return self._run(np.ascontiguousarray(data[:, :usable]))[0]

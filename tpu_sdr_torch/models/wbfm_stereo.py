@@ -31,7 +31,7 @@ from torch import nn
 
 from tpu_sdr_torch.models import wbfm as M
 from tpu_sdr_torch.ops import fm as F
-from tpu_sdr_torch.utils import design, firdes
+from tpu_sdr_torch.utils import design, firdes, graphs
 from tpu_sdr_torch.utils.design import WbfmConfig
 
 
@@ -177,7 +177,9 @@ class WbfmStereoStreamer:
     """Feed u8 blocks of any size, receive (2, m) float stereo audio.  Each
     call consumes a multiple of ``2*decim*down`` bytes; the residual leads
     the next call.  With ``config.emit_mpx`` each call also leaves the
-    block's 340 kHz multiplex in ``last_mpx``."""
+    block's 340 kHz multiplex in ``last_mpx``.  The step runs through
+    ``utils.graphs``, keyed on the block's length and the front's fs/4
+    phase: one CUDA graph replay a call on the card."""
 
     def __init__(self, config: StereoConfig | None = None, *,
                  device: str | torch.device):
@@ -189,6 +191,15 @@ class WbfmStereoStreamer:
         self._quantum = 2 * base.decim * base.resample_down
         self._pending = np.zeros(0, dtype=np.uint8)
         self.last_mpx: np.ndarray | None = None  # set when config.emit_mpx
+        self.graphs = graphs.StepGraphs("WbfmStereoStreamer", self._step,
+                                        self.device)
+
+    def _step(self, ints, inputs, carries):
+        state = graphs.join_state(self.state, ints, carries)
+        *outputs, new = demodulate_block(inputs[0], state, self.params,
+                                         self.config)
+        new_ints, new_carries = graphs.split_state(new)
+        return outputs, new_carries, new_ints
 
     def demodulate(self, buf: np.ndarray) -> np.ndarray:
         data = np.concatenate([self._pending, np.asarray(buf, np.uint8)])
@@ -198,9 +209,9 @@ class WbfmStereoStreamer:
             if self.config.emit_mpx:
                 self.last_mpx = np.zeros(0, np.float32)
             return np.zeros((2, 0), np.float32)
-        block = torch.from_numpy(data[:usable]).to(self.device)
-        out = demodulate_block(block, self.state, self.params, self.config)
-        self.state = out[-1]
+        ints, carries = graphs.split_state(self.state)
+        out, carries, ints = self.graphs(ints, [data[:usable]], carries)
+        self.state = graphs.join_state(self.state, ints, carries)
         if self.config.emit_mpx:
-            self.last_mpx = out[1].cpu().numpy()
-        return out[0].cpu().numpy()
+            self.last_mpx = out[1]
+        return out[0]

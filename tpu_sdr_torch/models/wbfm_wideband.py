@@ -30,7 +30,7 @@ from torch import nn
 from tpu_sdr_torch.ops import channelizer as chan
 from tpu_sdr_torch.ops import fm as F
 from tpu_sdr_torch.ops import fused_channelizer as FC
-from tpu_sdr_torch.utils import design
+from tpu_sdr_torch.utils import design, graphs
 
 
 @dataclass(frozen=True)
@@ -177,7 +177,9 @@ class WidebandStreamer:
     ``use_fused=True`` runs K3 as the channelizer (on a CUDA device; the
     plain version of K3 on the CPU).  The fused front keeps its carry in
     ``pfb_carry`` and leaves ``state.pfb`` as it was, as the JAX streamer
-    does."""
+    does.  Either front's step (the channelizer and the tail) runs through
+    ``utils.graphs``, keyed on the block's length: one CUDA graph replay a
+    call on the card."""
 
     def __init__(self, config: WidebandConfig | None = None,
                  use_fused: bool = False, *, device: str | torch.device):
@@ -193,6 +195,27 @@ class WidebandStreamer:
             self.spec = fused_spec(self.config)
             self._quantum = self.spec.chunk_bytes
             self.pfb_carry = FC.init_carry(self.spec, self.device)
+        self.graphs = graphs.StepGraphs("WidebandStreamer", self._step,
+                                        self.device)
+
+    def _step(self, _static, inputs, carries):
+        """The graphed step.  Carries: the fused front's K3 carry, or the
+        plain front's two frame histories, then the tail's previous
+        samples and resampler histories."""
+        block = inputs[0]
+        if self.use_fused:
+            pfb_carry, pre_re, pre_im, hist = carries
+            audio, *mpx, pfb_carry, quad, hist = demodulate_block_fused(
+                block, pfb_carry, F.QuadState(pre_re, pre_im), hist,
+                self.params, self.config, self.spec)
+            return [audio, *mpx], [pfb_carry, *quad, hist], None
+        state = WidebandState(chan.PfbState(*carries[:2]),
+                              F.QuadState(*carries[2:4]),
+                              F.AlignedResampleState(carries[4]))
+        audio, *mpx, state = demodulate_block(block, state, self.params,
+                                              self.config)
+        return [audio, *mpx], [*state.pfb, *state.quad, state.resamp.hist], \
+            None
 
     def demodulate(self, buf: np.ndarray) -> np.ndarray:
         data = np.concatenate([self._pending, np.asarray(buf, np.uint8)])
@@ -203,17 +226,17 @@ class WidebandStreamer:
             if self.config.emit_mpx:
                 self.last_mpx = np.zeros((n_st, 0), np.float32)
             return np.zeros((n_st, 0), np.float32)
-        block = torch.from_numpy(data[:usable]).to(self.device)
+        tail = [*self.state.quad, self.state.resamp.hist]
+        front = [self.pfb_carry] if self.use_fused else list(self.state.pfb)
+        (audio, *mpx), carries, _ = self.graphs((), [data[:usable]],
+                                                front + tail)
+        pfb = self.state.pfb
         if self.use_fused:
-            out = demodulate_block_fused(
-                block, self.pfb_carry, self.state.quad, self.state.resamp.hist,
-                self.params, self.config, self.spec)
-            audio, *mpx, self.pfb_carry, quad, hist = out
-            self.state = WidebandState(self.state.pfb, quad,
-                                       F.AlignedResampleState(hist))
+            self.pfb_carry = carries[0]
         else:
-            audio, *mpx, self.state = demodulate_block(
-                block, self.state, self.params, self.config)
+            pfb = chan.PfbState(*carries[:2])
+        self.state = WidebandState(pfb, F.QuadState(*carries[-3:-1]),
+                                   F.AlignedResampleState(carries[-1]))
         if mpx:
-            self.last_mpx = mpx[0].cpu().numpy()
-        return audio.cpu().numpy()
+            self.last_mpx = mpx[0]
+        return audio

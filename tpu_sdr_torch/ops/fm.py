@@ -249,8 +249,15 @@ def resample_init(T: int, device: torch.device) -> ResampleState:
                                      device=device), 0)
 
 
+def polyphase_count(n: int, up: int, down: int, t0: int) -> int:
+    """The outputs :func:`polyphase_resample` gives for n inputs from
+    output phase ``t0``."""
+    return max((n * up - t0 + down - 1) // down, 0)
+
+
 def polyphase_resample(x: torch.Tensor, h_poly: torch.Tensor, up: int,
-                       down: int, state: ResampleState):
+                       down: int, state: ResampleState,
+                       t0_index: torch.Tensor | None = None):
     """Rational ``up/down`` resampler for any block length, along the last
     axis.  ``h_poly[p, t] = h[p + t*up]``; output m lands at up-sampled
     time ``t0 + m*down`` with ``q = time // up``, ``p = time % up``::
@@ -258,15 +265,19 @@ def polyphase_resample(x: torch.Tensor, h_poly: torch.Tensor, up: int,
         y[m] = sum_t h_poly[p, t] * x[q - t]
 
     One gather of every output's window and one contraction.  Returns
-    (y, new_state): y holds exactly this block's outputs."""
+    (y, new_state): y holds exactly this block's outputs.  ``t0_index``:
+    ``state.t0`` as a 0-d int64 tensor on x's device, which the index
+    arithmetic then reads (the same values): a graphed step replays for
+    any ``t0`` that gives the same output count."""
     up_, T = h_poly.shape
     if up_ != up:
         raise ValueError(f"h_poly has {up_} phases, not {up}")
     n = x.shape[-1]
     t0 = state.t0
-    count = max((n * up - t0 + down - 1) // down, 0)
+    count = polyphase_count(n, up, down, t0)
     xx = torch.cat([state.hist, x], dim=-1)  # (..., T-1+n)
-    tt = t0 + torch.arange(count, device=x.device) * down
+    tt = (t0 if t0_index is None else t0_index) + torch.arange(
+        count, device=x.device) * down
     q, p = tt // up, tt % up
     win = q[:, None] + (T - 1) - torch.arange(T, device=x.device)[None, :]
     windows = xx[..., win]  # (..., count, T)
@@ -287,21 +298,32 @@ def boxcar_resample_init(device: torch.device) -> BoxcarResampleState:
                                            device=device), 0)
 
 
+def boxcar_count(n: int, acc: int, rate_out: int, rate_resample: int
+                 ) -> int:
+    """The outputs :func:`boxcar_resample_f32` gives for n inputs from the
+    accumulator ``acc``."""
+    return (acc + n * int(rate_resample)) // int(rate_out)
+
+
 def boxcar_resample_f32(x: torch.Tensor, state: BoxcarResampleState,
-                        rate_out: int, rate_resample: int):
+                        rate_out: int, rate_resample: int,
+                        acc_index: torch.Tensor | None = None):
     """Float twin of the reference's ``low_pass_real`` along the last axis:
     accumulate ``slow`` a sample, emit the mean (sum / (fast // slow)) at
     each ``fast`` crossing, through the same closed-form emission indices
     as the exact chain (cumsum + gather).  Returns (y, new_state), y
-    exactly this block's outputs."""
+    exactly this block's outputs.  ``acc_index``: ``state.acc`` as a 0-d
+    int64 tensor on x's device for the index arithmetic, as
+    :func:`polyphase_resample`'s ``t0_index``."""
     fast, slow = int(rate_out), int(rate_resample)
     n = x.shape[-1]
     a = state.acc
     total = a + n * slow
-    count = total // fast
+    count = boxcar_count(n, a, fast, slow)
     cs = state.now[..., None] + torch.cumsum(x.to(torch.float32), dim=-1)
     j = torch.arange(count, device=x.device)
-    e = (((j + 1) * fast - a) + slow - 1) // slow - 1
+    e = (((j + 1) * fast - (a if acc_index is None else acc_index))
+         + slow - 1) // slow - 1
     cs_at_e = cs[..., e]
     prev = torch.cat([torch.zeros_like(cs[..., :1]), cs_at_e[..., :-1]],
                      dim=-1)

@@ -31,7 +31,7 @@ from torch import nn
 from tpu_sdr_torch import kernels
 from tpu_sdr_torch.models import wbfm as M
 from tpu_sdr_torch.ops import fm as F
-from tpu_sdr_torch.utils import design
+from tpu_sdr_torch.utils import design, graphs
 from tpu_sdr_torch.utils.design import WbfmConfig
 
 STATE_ROWS = 4
@@ -431,7 +431,11 @@ class FusedWbfmStreamer:
     (``spec.chunk_bytes``) go through the kernels, the residual leads the
     next call, and the fs/4 phase advances by the samples consumed.  A
     block may be a numpy array or a u8 tensor on the streamer's device
-    (the residual then stays on the device); the audio is the same bits."""
+    (the residual then stays on the device); the audio is the same bits.
+
+    The step (K1, then K2) runs through ``utils.graphs``: one CUDA graph
+    replay a call on the card, keyed on the block's chunks and the phase
+    (a chunk is a multiple of 4 samples, so the phase never moves here)."""
 
     def __init__(self, config: WbfmConfig | None = None, *,
                  device: str | torch.device):
@@ -443,6 +447,12 @@ class FusedWbfmStreamer:
                                        dtype=torch.float32, device=self.device)
         self.phase = 0
         self._pending = np.zeros(0, dtype=np.uint8)
+        self.graphs = graphs.StepGraphs("FusedWbfmStreamer", self._step,
+                                        self.device)
+
+    def _step(self, phase, inputs, carries):
+        audio, carry, hist = self.model(inputs[0], phase, *carries)
+        return [audio], [carry, hist], None
 
     def demodulate(self, buf: np.ndarray | torch.Tensor) -> np.ndarray:
         block, self._pending = _split_pending(self._pending, buf, self.device,
@@ -450,21 +460,26 @@ class FusedWbfmStreamer:
         usable = block.shape[-1]
         if usable == 0:
             return np.zeros(0, dtype=np.float32)
-        block = torch.as_tensor(block).to(self.device)
-        audio, self.state, self.resamp_hist = self.model(
-            block, self.phase, self.state, self.resamp_hist)
+        (audio,), (self.state, self.resamp_hist), _ = self.graphs(
+            self.phase, [block], [self.state, self.resamp_hist])
         self.phase = (self.phase + usable // 2) % 4
-        return audio.cpu().numpy()
+        return audio
 
 
 class FusedWbfmBatchStreamer:
     """The station batch over the kernels (the counterpart of
     ``PallasWbfmBatchStreamer``): feed (stations, bytes) u8 blocks, receive
     (stations, m) float audio.  Whole chunks of every row go through ONE K1
-    and ONE K2 launch; the residual leads the next call.  The carries keep
-    the JAX attribute names and shapes: ``states`` (S, 4, 128),
-    ``resamp_hists`` (S, T-1) and ``phases``, one a station (they may
-    differ: K1 rotates each station at its own)."""
+    and ONE K2 launch, one CUDA graph replay a call on the card; the
+    residual leads the next call.  The carries keep the JAX attribute names
+    and shapes: ``states`` (S, 4, 128), ``resamp_hists`` (S, T-1) and
+    ``phases``, one a station (they may differ: K1 rotates each station at
+    its own).  A chunk is 128 * down * decim samples, a multiple of 4, so
+    the phases never move.  When they agree, K1 takes the one phase as a
+    compile-time constant and the phase goes in the graph's key; when they
+    differ, it reads the streamer's (S,) int32 tensor of them on the
+    device.  ``phases`` reads them as a list of ints (as a checkpoint
+    stores them) and takes a list, an array or a tensor."""
 
     def __init__(self, stations: int, config: WbfmConfig | None = None, *,
                  device: str | torch.device):
@@ -477,6 +492,28 @@ class FusedWbfmBatchStreamer:
                                         dtype=torch.float32, device=self.device)
         self.phases = [0] * stations
         self._pending = np.zeros((stations, 0), dtype=np.uint8)
+        self.graphs = graphs.StepGraphs("FusedWbfmBatchStreamer", self._step,
+                                        self.device)
+
+    @property
+    def phases(self) -> list[int]:
+        return list(self._phase_list)
+
+    @phases.setter
+    def phases(self, phases) -> None:
+        phases = station_phases(phases, self.stations)
+        self._uniform = phases if isinstance(phases, int) else None
+        self._phase_list = [phases] * self.stations \
+            if isinstance(phases, int) else phases
+        self._phases = torch.tensor(self._phase_list, dtype=torch.int32,
+                                    device=self.device)
+
+    def _step(self, uniform, inputs, carries):
+        states, hists, phases = carries
+        audio, states, hists = demodulate_fused_batch(
+            inputs[0], phases if uniform is None else uniform, states, hists,
+            self.model.taps, self.model.h_poly, self.spec)
+        return [audio], [states, hists, phases], None
 
     def demodulate(self, bufs: np.ndarray | torch.Tensor) -> np.ndarray:
         block, self._pending = _split_pending(self._pending, bufs, self.device,
@@ -484,10 +521,10 @@ class FusedWbfmBatchStreamer:
         usable = block.shape[-1]
         if usable == 0:
             return np.zeros((self.stations, 0), dtype=np.float32)
-        block = (block.contiguous() if torch.is_tensor(block) else
-                 torch.from_numpy(np.ascontiguousarray(block))).to(self.device)
-        audio, self.states, self.resamp_hists = demodulate_fused_batch(
-            block, self.phases, self.states, self.resamp_hists,
-            self.model.taps, self.model.h_poly, self.spec)
-        self.phases = [(p + usable // 2) % 4 for p in self.phases]
-        return audio.cpu().numpy()
+        if not torch.is_tensor(block):
+            block = np.ascontiguousarray(block)
+        (audio,), carries, _ = self.graphs(
+            self._uniform, [block],
+            [self.states, self.resamp_hists, self._phases])
+        self.states, self.resamp_hists, self._phases = carries
+        return audio

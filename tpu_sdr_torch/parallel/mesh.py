@@ -93,30 +93,28 @@ def _to(x, device: torch.device) -> torch.Tensor:
     return x.to(device).contiguous()
 
 
-def shard_time(mesh: Mesh, blocks, out=None
-               ) -> list[list[torch.Tensor | None]]:
-    """Cut ``(stations, n)`` blocks (numpy or torch) into ``dp x sp``
-    contiguous shards, stations over ``dp`` and the last axis over ``sp``,
-    each on its place: ``shards[d][s]``.  Rows this process does not own
-    are ``None``.  ``out``: the shards of an earlier call of the same
-    shape, written in place and returned."""
+def time_cuts(mesh: Mesh, blocks) -> list[list]:
+    """The ``dp x sp`` contiguous cuts of ``(stations, n)`` blocks (numpy
+    or torch), stations over ``dp`` and the last axis over ``sp``, as
+    views of ``blocks``: ``cuts[d][s]``."""
     dp, sp = mesh.devices.shape
     stations, n = blocks.shape
     if stations % dp or n % sp:
         raise ValueError(f"blocks of shape {tuple(blocks.shape)} do not "
                          f"split over a {dp}x{sp} mesh")
     st, n_loc = stations // dp, n // sp
-    shards = out or [[None] * sp for _ in range(dp)]
-    for d in mesh.local_rows():
-        for s in range(sp):
-            part = blocks[d * st:(d + 1) * st, s * n_loc:(s + 1) * n_loc]
-            if out is None:
-                shards[d][s] = _to(part, mesh.devices[d, s])
-            else:
-                if isinstance(part, np.ndarray):
-                    part = torch.from_numpy(np.ascontiguousarray(part))
-                shards[d][s].copy_(part)
-    return shards
+    return [[blocks[d * st:(d + 1) * st, s * n_loc:(s + 1) * n_loc]
+             for s in range(sp)] for d in range(dp)]
+
+
+def shard_time(mesh: Mesh, blocks) -> list[list[torch.Tensor | None]]:
+    """:func:`time_cuts` of ``blocks``, each on its place: ``shards[d][s]``.
+    Rows this process does not own are ``None``."""
+    cuts = time_cuts(mesh, blocks)
+    local = set(mesh.local_rows())
+    return [[_to(x, mesh.devices[d, s]) for s, x in enumerate(row)]
+            if d in local else [None] * len(row)
+            for d, row in enumerate(cuts)]
 
 
 def replicate(devices: Sequence[torch.device], x) -> list[torch.Tensor]:

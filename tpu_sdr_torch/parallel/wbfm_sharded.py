@@ -111,14 +111,18 @@ class ShardedWbfm:
     def __call__(self, shards, *carry):
         return self.fn(shards, *carry)
 
-    def assemble(self, audio, counts) -> np.ndarray:
+    def trim(self, audio, counts) -> torch.Tensor:
         """Trim per-shard padding, concatenate time shards and stack the
-        rows this process computed, as numpy."""
+        rows this process computed, on ``mesh.home``."""
         home = self.mesh.home
         rows = [torch.cat([a[:, :c].to(home) for a, c in zip(row, counts)],
                           dim=1)
                 for row in audio if row is not None]
-        return torch.cat(rows).cpu().numpy()
+        return torch.cat(rows)
+
+    def assemble(self, audio, counts) -> np.ndarray:
+        """:meth:`trim` as numpy."""
+        return self.trim(audio, counts).cpu().numpy()
 
 
 def _row_carry(carry, i: int, st: int, device: torch.device):

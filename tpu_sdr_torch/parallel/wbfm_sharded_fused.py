@@ -33,8 +33,6 @@ which K1 takes as they are; the rotation runs in K1 (the JAX chain's
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-
 import numpy as np
 import torch
 
@@ -45,11 +43,8 @@ from tpu_sdr_torch.parallel import shard_halo as SH
 from tpu_sdr_torch.parallel.mesh import Mesh
 from tpu_sdr_torch.parallel.wbfm_sharded import (
     ShardedWbfm, check_not_boxcar, resample_shard, run_rows)
+from tpu_sdr_torch.utils import graphs
 from tpu_sdr_torch.utils.design import WbfmConfig
-
-# the launch counters of the kernels a sharded step runs
-_COUNTERS = (FF.LAUNCHES, CH.LAUNCHES, SH.LAUNCHES)
-
 
 def initial_carry(stations: int, config: WbfmConfig | None = None, *,
                   device: str | torch.device
@@ -145,20 +140,6 @@ def make_sharded_wbfm_fused(mesh: Mesh, config: WbfmConfig | None = None,
     return ShardedWbfm(mesh=mesh, config=config, fn=fn)
 
 
-@dataclass
-class _StepGraph:
-    """A captured step and the static tensors it reads and writes."""
-
-    shape: tuple
-    graph: torch.cuda.CUDAGraph
-    shards: list        # the block's static shard buffers
-    states: torch.Tensor
-    hists: torch.Tensor
-    audio: list         # the step's audio, rewritten by every replay
-    counts: list
-    launches: list      # per counter dict, the launches of one step
-
-
 class ShardedFusedStreamer:
     """Streaming host wrapper around the ``carry_io`` fused sharded chain:
     a multi-shard receiver with the ``(carry, block)`` discipline of the
@@ -171,12 +152,13 @@ class ShardedFusedStreamer:
     ``states``/``resamp_hists`` and shapes, on ``mesh.home``.
 
     When every place of the mesh is one CUDA device (``graphed``), the
-    first block of a shape runs the step eagerly (which also builds the
-    kernels), then one step is captured as a CUDA graph over static shard
-    and carry buffers; each later block of that shape is copied into the
-    shard buffers and the graph replays.  The launch counters then add the
-    captured step's launches at each replay.  A mesh over several cards,
-    or on the CPU, runs every step eagerly."""
+    step runs through ``utils.graphs``: the first block of a shape runs it
+    eagerly (which also builds the kernels) over static shard and carry
+    buffers, then one step is captured as a CUDA graph over them; each
+    later block of that shape is copied into the shard buffers and the
+    graph replays.  The launch counters then add the captured step's
+    launches at each replay.  A mesh over several cards, or on the CPU,
+    runs every step eagerly."""
 
     def __init__(self, mesh: Mesh, stations: int,
                  config: WbfmConfig | None = None):
@@ -185,12 +167,22 @@ class ShardedFusedStreamer:
         self.states, self.resamp_hists = initial_carry(
             stations, self.config, device=mesh.home)
         self.graphed = mesh.is_cuda and len(set(mesh.devices.flat)) == 1
-        self._graph: _StepGraph | None = None
+        self.graphs = graphs.StepGraphs("ShardedFusedStreamer", self._step,
+                                        mesh.home)
 
     @property
     def step_graph(self) -> torch.cuda.CUDAGraph | None:
-        """The captured step (``None`` before the first block, or eager)."""
-        return None if self._graph is None else self._graph.graph
+        """The last block's captured step (``None`` before the first block,
+        or eager)."""
+        return self.graphs.graph if self.graphed else None
+
+    def _step(self, _static, inputs, carries):
+        """The step on the shards of one block (row-major over the mesh),
+        its audio assembled on the card."""
+        dp, sp = self.chain.mesh.devices.shape
+        shards = [inputs[d * sp:(d + 1) * sp] for d in range(dp)]
+        audio, counts, kernel_end, rs_end = self.chain.fn(shards, *carries)
+        return [self.chain.trim(audio, counts)], [kernel_end, rs_end], None
 
     def demodulate(self, blocks) -> np.ndarray:
         if isinstance(blocks, np.ndarray):
@@ -199,50 +191,15 @@ class ShardedFusedStreamer:
             audio, counts, self.states, self.resamp_hists = self.chain.fn(
                 self.chain.shard(blocks), self.states, self.resamp_hists)
             return self.chain.assemble(audio, counts)
-        g = self._graph
-        if g is None or g.shape != tuple(blocks.shape):
-            return self._step_and_capture(blocks)
-        mesh_mod.shard_time(self.chain.mesh, blocks, out=g.shards)
-        # a carry assigned from outside (reset, a hand-over) goes into the
-        # static buffers the graph reads
-        if self.states is not g.states:
-            g.states.copy_(self.states)
-            self.states = g.states
-        if self.resamp_hists is not g.hists:
-            g.hists.copy_(self.resamp_hists)
-            self.resamp_hists = g.hists
-        g.graph.replay()
-        for counter, step in zip(_COUNTERS, g.launches):
-            for name, n in step.items():
-                counter[name] += n
-        return self.chain.assemble(g.audio, g.counts)
-
-    def _step_and_capture(self, blocks) -> np.ndarray:
-        """The eager step on ``blocks``, then the capture of the next step
-        over the same buffers."""
-        # the graph's own shard buffers: a shard cut from a CUDA block may
-        # be a view of the caller's tensor, which later blocks would overwrite
-        shards = [[x if x is None else x.clone() for x in row]
-                  for row in self.chain.shard(blocks)]
-        audio, counts, states, hists = self.chain.fn(
-            shards, self.states, self.resamp_hists)
-        out = self.chain.assemble(audio, counts)
-        graph = torch.cuda.CUDAGraph()
-        before = [dict(c) for c in _COUNTERS]
-        with torch.cuda.device(self.chain.mesh.home), torch.cuda.graph(graph):
-            g_audio, g_counts, kernel_end, rs_end = self.chain.fn(
-                shards, states, hists)
-            states.copy_(kernel_end)
-            hists.copy_(rs_end)
-        # capture launches nothing: take its ticks back, keep them per step
-        launches = []
-        for counter, b in zip(_COUNTERS, before):
-            launches.append({k: counter[k] - b[k] for k in counter})
-            counter.update(b)
-        self._graph = _StepGraph(tuple(blocks.shape), graph, shards, states,
-                                 hists, g_audio, g_counts, launches)
-        self.states, self.resamp_hists = states, hists
-        return out
+        # each shard into its static buffer: a view of a host block, or of
+        # the caller's tensor, which the step never keeps
+        shards = [x for row in mesh_mod.time_cuts(self.chain.mesh, blocks)
+                  for x in row]
+        if isinstance(blocks, np.ndarray):
+            shards = [np.ascontiguousarray(x) for x in shards]
+        (audio,), (self.states, self.resamp_hists), _ = self.graphs(
+            (), shards, [self.states, self.resamp_hists])
+        return audio
 
     def reset(self) -> None:
         self.states, self.resamp_hists = initial_carry(

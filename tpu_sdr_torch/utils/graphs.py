@@ -1,0 +1,411 @@
+"""The port's counterpart of ``jax.jit``: a streamer's per-block step run
+as one CUDA graph replay.
+
+The JAX package compiles each streamer's step into one XLA program, traced
+once per shape and then dispatched with one call a block.  Here a step
+function
+
+    step(static, inputs, carries) -> (outputs, new_carries, aux)
+
+gets one entry per key in :class:`StepGraphs`, where the key is
+``static`` (the host values the step branches on: an fs/4 phase, a
+resampler index) plus the shapes and dtypes of its inputs and carries.
+``inputs`` and ``carries`` are lists of tensors, ``outputs`` and
+``new_carries`` lists of tensors, ``aux`` any host value the step derives
+from the key alone (a next phase, an output count).
+
+* The first call with a new key runs the step eagerly on the entry's
+  static input and carry buffers (on the capture stream: that call builds
+  the kernels and creates the library handles and workspaces outside
+  capture), then captures the same step over those buffers as a CUDA
+  graph.  Every later call with that key copies the block into the static
+  input (non-blocking, from a pinned staging buffer or from the card) and
+  replays the graph.
+* Each graph ends by writing the new carries into the static carry
+  buffers, which the streamer then holds as its carries.  A carry assigned
+  from outside (a reset, a checkpoint load, a hand-over) is not one of
+  them, and is copied into them before the next replay.
+* The outputs are packed into one byte tensor inside the graph and come
+  to the host in one D2H copy into a pinned buffer, followed by one
+  synchronize; the caller gets numpy arrays.  An output lives in the
+  graphs' memory pool only until the next call, so nothing but that copy
+  reads it.
+* The launch counters of the kernels (``fused_fm``, ``fused_channelizer``,
+  ``cuda_halo``, ``shard_halo``) gain the captured step's launches at each
+  replay; capture itself adds none.
+* A streamer's graphs share one memory pool (``graph_pool_handle``); its
+  cache holds the :data:`MAX_KEYS` most recently used keys.  Sharing is
+  safe because the graphs of one streamer run one at a time and no output
+  outlives its call.
+* :func:`disabled` runs every step eagerly, as ``jax.disable_jit`` does.
+  A capture that fails raises :class:`GraphCaptureError`, naming the
+  streamer and the key; nothing falls back to eager without being asked.
+
+CUDA graphs do not exist on the CPU: there the same step runs eagerly on
+the same static buffers (the static-buffer form), so the CPU tests hold
+the buffer discipline itself against the JAX package.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import gc
+import weakref
+from collections import OrderedDict
+from dataclasses import dataclass, field
+from typing import Any, Callable, Hashable, Sequence
+
+import numpy as np
+import torch
+
+MAX_KEYS = 8  # the graphs a streamer keeps, most recently used first
+
+_disabled = 0
+
+
+@contextlib.contextmanager
+def disabled():
+    """Run every step eagerly inside this block (``jax.disable_jit``)."""
+    global _disabled
+    _disabled += 1
+    try:
+        yield
+    finally:
+        _disabled -= 1
+
+
+class GraphCaptureError(RuntimeError):
+    """A step could not be captured as a CUDA graph.  The streamer that
+    raised it is not to be used again: the eager run of the block that
+    precedes a capture has already moved its carries and its residual on,
+    and that block's outputs are lost.  Go on with a new streamer (or a
+    checkpoint loaded into one), under :func:`disabled` if need be."""
+
+
+_capture_streams: dict[torch.device, torch.cuda.Stream] = {}
+
+
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The stream every first call of a key and its capture run on, one a
+    device.  It comes from the high-priority pool, so it is never one of
+    the default-priority side streams that other code (the feeder's copies)
+    takes from PyTorch's round-robin pool."""
+    if device not in _capture_streams:
+        _capture_streams[device] = torch.cuda.Stream(device, priority=-1)
+    return _capture_streams[device]
+
+
+def _counters() -> tuple[dict, ...]:
+    """The launch counters of every kernel wrapper (imported here, not at
+    the top: those modules import the models that import this one)."""
+    from tpu_sdr_torch.ops import fused_channelizer, fused_fm
+    from tpu_sdr_torch.parallel import cuda_halo, shard_halo
+
+    return (fused_fm.LAUNCHES, fused_channelizer.LAUNCHES, cuda_halo.LAUNCHES,
+            shard_halo.LAUNCHES)
+
+
+def split_state(tree) -> tuple[tuple, list[torch.Tensor]]:
+    """(host leaves, tensor leaves) of a tree of tuples and NamedTuples in
+    field order: the host leaves go into a key, the tensors are carries."""
+    host: list = []
+    tensors: list[torch.Tensor] = []
+
+    def walk(x):
+        if isinstance(x, tuple):
+            for sub in x:
+                walk(sub)
+        elif torch.is_tensor(x):
+            tensors.append(x)
+        else:
+            host.append(x)
+
+    walk(tree)
+    return tuple(host), tensors
+
+
+def join_state(tree, host: Sequence, tensors: Sequence[torch.Tensor]):
+    """``tree``'s structure with its host and tensor leaves replaced, in the
+    order :func:`split_state` gives them."""
+    h, t = iter(host), iter(tensors)
+
+    def walk(x):
+        if isinstance(x, tuple):
+            subs = [walk(sub) for sub in x]
+            return type(x)(*subs) if hasattr(x, "_fields") else tuple(subs)
+        return next(t) if torch.is_tensor(x) else next(h)
+
+    return walk(tree)
+
+
+def _signature(xs) -> tuple:
+    return tuple((tuple(x.shape), str(x.dtype)) for x in xs)
+
+
+def _torch_dtype(x) -> torch.dtype:
+    if torch.is_tensor(x):
+        return x.dtype
+    return torch.from_numpy(np.empty(0, dtype=x.dtype)).dtype
+
+
+def _np_dtype(dtype: torch.dtype) -> np.dtype:
+    return torch.empty(0, dtype=dtype).numpy().dtype
+
+
+def _as_tensor(x, device: torch.device) -> torch.Tensor:
+    if torch.is_tensor(x):
+        return x.to(device)
+    x = np.ascontiguousarray(x)
+    return torch.from_numpy(x if x.flags.writeable else x.copy()).to(device)
+
+
+def _pack(outputs: Sequence[torch.Tensor], avoid: set[int]
+          ) -> torch.Tensor:
+    """Every output's bytes in one u8 tensor (one ``cat``; a lone output
+    that shares no storage with ``avoid``, the static buffers that the end
+    of the step rewrites, goes as it is)."""
+    flat = [o.reshape(-1).view(torch.uint8) if o.dtype != torch.bool
+            else o.reshape(-1).to(torch.uint8) for o in outputs]
+    if len(flat) == 1 and outputs[0].untyped_storage().data_ptr() not in avoid:
+        return flat[0]
+    return torch.cat(flat)
+
+
+@dataclass
+class _Entry:
+    """One key's static buffers, its graph and what it needs to replay."""
+
+    key: Hashable
+    inputs: list[torch.Tensor]
+    staging: list[torch.Tensor | None]  # pinned host copies of host inputs
+    carries: list[torch.Tensor]
+    layout: list[tuple] = field(default_factory=list)  # (np dtype, shape)
+    host: torch.Tensor | None = None      # the outputs' bytes on the host
+    packed: torch.Tensor | None = None    # the graph's packed outputs
+    aux: Any = None
+    graph: torch.cuda.CUDAGraph | None = None
+    launches: list[dict] = field(default_factory=list)
+
+
+class StepGraphs:
+    """One streamer's per-key cache of captured steps (see the module
+    docstring).  ``name`` names the streamer in errors."""
+
+    def __init__(self, name: str, step: Callable, device: torch.device):
+        self.name = name
+        # a streamer's bound method, held weakly: the streamer holds this
+        # cache, and a cycle would leave both (pinned buffers, graphs) to
+        # the garbage collector, which may run at any allocation
+        self._step = (weakref.WeakMethod(step) if hasattr(step, "__self__")
+                      else lambda: step)
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.captures = 0  # graphs captured (static forms built on the CPU)
+        self.replays = 0
+        self._entries: OrderedDict[Hashable, _Entry] = OrderedDict()
+        self._carries: list[torch.Tensor] | None = None  # shared statics
+        self._pool = None
+        self._last: _Entry | None = None
+
+    @property
+    def keys(self) -> list:
+        """The cached keys, least recently used first."""
+        return list(self._entries)
+
+    @property
+    def graph(self) -> torch.cuda.CUDAGraph | None:
+        """The graph of the last call's key (``None`` before it, on the CPU
+        or eagerly)."""
+        return None if self._last is None else self._last.graph
+
+    def __call__(self, static: Hashable, inputs: Sequence, carries:
+                 Sequence[torch.Tensor]
+                 ) -> tuple[list[np.ndarray], list[torch.Tensor], Any]:
+        """One block: (host outputs, new carries, aux).  ``inputs`` may be
+        numpy arrays or tensors; ``carries`` are the streamer's."""
+        if _disabled:
+            outputs, new, aux = self._step()(
+                static, [_as_tensor(x, self.device) for x in inputs],
+                list(carries))
+            packed = _pack(outputs, set())
+            return (self._unpack(packed.cpu(), self._layout(outputs)),
+                    list(new), aux)
+        key = (static, _signature(inputs), _signature(carries))
+        entry = self._entries.get(key)
+        cuda = self.device.type == "cuda"
+        with torch.cuda.device(self.device) if cuda else \
+                contextlib.nullcontext():
+            if entry is None:
+                return self._first(key, static, inputs, carries)
+            self._entries.move_to_end(key)
+            self._last = entry
+            self._load(entry, inputs, carries)
+            if cuda:
+                entry.graph.replay()
+                for counter, step in zip(_counters(), entry.launches):
+                    for name, n in step.items():
+                        counter[name] += n
+                packed = entry.packed
+            else:
+                packed = self._body(static, entry)
+            self.replays += 1
+            return self._to_host(entry, packed), entry.carries, entry.aux
+
+    # -- the parts of a call ------------------------------------------------
+
+    def _body(self, static, e: _Entry) -> torch.Tensor:
+        """The step on the entry's static buffers: the packed outputs, the
+        new carries written into the static carries."""
+        outputs, new, aux = self._step()(static, e.inputs, e.carries)
+        if len(new) != len(e.carries):
+            raise ValueError(f"{self.name}: the step returned {len(new)} "
+                             f"carries for {len(e.carries)}")
+        avoid = {t.untyped_storage().data_ptr() for t in e.carries + e.inputs}
+        packed = _pack(outputs, avoid)
+        # a new carry that lies in another static carry is read before
+        # that one is rewritten
+        held = {t.untyped_storage().data_ptr() for t in e.carries}
+        new = [c.clone() if c is not s and c.untyped_storage().data_ptr()
+               in held else c for s, c in zip(e.carries, new)]
+        for s, c in zip(e.carries, new):
+            if c is not s:
+                s.copy_(c)
+        e.layout = self._layout(outputs)
+        e.aux = aux
+        return packed
+
+    @staticmethod
+    def _layout(outputs) -> list[tuple]:
+        return [(_np_dtype(o.dtype), tuple(o.shape)) for o in outputs]
+
+    @staticmethod
+    def _unpack(host: torch.Tensor, layout) -> list[np.ndarray]:
+        raw = host.numpy()
+        out, at = [], 0
+        for dtype, shape in layout:
+            n = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+            a = raw[at:at + n]
+            out.append((a.view(dtype) if dtype != np.bool_ else
+                        a.astype(np.bool_)).reshape(shape).copy())
+            at += n
+        return out
+
+    def _to_host(self, e: _Entry, packed: torch.Tensor) -> list[np.ndarray]:
+        if self.device.type == "cuda":
+            e.host.copy_(packed, non_blocking=True)
+            torch.cuda.current_stream(self.device).synchronize()
+            return self._unpack(e.host, e.layout)
+        return self._unpack(packed, e.layout)
+
+    def _load(self, e: _Entry, inputs, carries) -> None:
+        """The block into the static inputs; carries assigned from outside
+        into the static carries."""
+        for static, stage, x in zip(e.inputs, e.staging, inputs):
+            if x is static:
+                continue
+            if isinstance(x, np.ndarray):
+                if stage is None:
+                    np.copyto(static.numpy(), x)
+                    continue
+                np.copyto(stage.numpy(), x)
+                x = stage
+            elif stage is not None and x.device.type == "cpu":
+                stage.copy_(x)
+                x = stage
+            static.copy_(x, non_blocking=True)
+        for static, c in zip(e.carries, carries):
+            if c is not static:
+                static.copy_(c)
+
+    def _new_entry(self, key, inputs, carries) -> _Entry:
+        dev = self.device
+        cuda = dev.type == "cuda"
+        statics = [torch.empty(tuple(x.shape), dtype=_torch_dtype(x),
+                               device=dev) for x in inputs]
+        staging = [torch.empty(tuple(x.shape), dtype=_torch_dtype(x),
+                               pin_memory=True)
+                   if cuda and (isinstance(x, np.ndarray)
+                                or x.device.type == "cpu") else None
+                   for x in inputs]
+        sig = _signature(carries)
+        if self._carries is None or _signature(self._carries) != sig \
+                or any(c.device != dev for c in self._carries):
+            self._carries = [torch.empty_like(c, device=dev) for c in carries]
+        e = _Entry(key, statics, staging, self._carries)
+        self._load(e, inputs, carries)
+        return e
+
+    def _first(self, key, static, inputs, carries):
+        """A new key: the eager step on fresh static buffers, then (on the
+        card) its capture over the same buffers."""
+        e = self._new_entry(key, inputs, carries)
+        if self.device.type != "cuda":
+            outputs = self._to_host(e, self._body(static, e))
+            self._keep(e)
+            return outputs, e.carries, e.aux
+        cur = torch.cuda.current_stream(self.device)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        side = _capture_stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            packed = self._body(static, e)
+            nbytes = packed.numel()
+            e.host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+            e.host.copy_(packed, non_blocking=True)
+        side.synchronize()
+        outputs = self._unpack(e.host, e.layout)
+        del packed
+        # the eager call has moved the carries on: capture the step that
+        # takes them from here
+        counters = _counters()
+        before = [dict(c) for c in counters]
+        graph = torch.cuda.CUDAGraph()
+        # capture_begin/end rather than torch.cuda.graph, which would also
+        # synchronize the device, collect garbage and empty the allocator's
+        # cache at every new key.  The collector stays off meanwhile: what
+        # it frees may have been used on the capturing stream (a pinned
+        # buffer then records an event there, which breaks the capture)
+        failure = None
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(side):
+                graph.capture_begin(pool=self._pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    e.packed = self._body(static, e)
+                except Exception as err:
+                    failure = err
+                try:
+                    graph.capture_end()
+                except Exception as err:
+                    failure = failure or err
+        finally:
+            if collecting:
+                gc.enable()
+        # capture launches nothing: take its ticks back, keep them
+        e.launches = [{k: c[k] - b.get(k, 0) for k in c}
+                      for c, b in zip(counters, before)]
+        for c, b in zip(counters, before):
+            c.update(b)
+        if failure is not None:
+            raise GraphCaptureError(
+                f"{self.name}: capturing the step for key {key!r} failed: "
+                f"{failure}") from failure
+        if e.packed.numel() != nbytes:
+            raise GraphCaptureError(f"{self.name}: key {key!r} captured "
+                                    f"{e.packed.numel()} output bytes, the "
+                                    f"eager step gave {nbytes}")
+        cur.wait_stream(side)
+        e.graph = graph
+        self._keep(e)
+        return outputs, e.carries, e.aux
+
+    def _keep(self, e: _Entry) -> None:
+        self._entries[e.key] = e
+        while len(self._entries) > MAX_KEYS:
+            self._entries.popitem(last=False)
+        self._last = e
+        self.captures += 1
