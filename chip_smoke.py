@@ -22,7 +22,8 @@ the ported paths through their user entry points:
   16-channel window from channel 16) and against the float64 PFB on its
   first 8,192 frames, then ``tpu_sdr_torch.apps.multi_fm --fused``
   on 1.024 s of it, against the plain front,
-  and the channel-parallel K3 bank on 4 logical shards of the card;
+  and the channel-parallel K3 bank on 4 logical shards of the card (a
+  graphed call; then graphed against ``graphs.disabled()``, below);
 * sharded: K4 (``halo_pull``) and K5 (``ring_shift``) against their plain
   versions (bit-equal) on rows of 1 and 4 shards and at the sharded paths'
   own shapes; the halo-record helper (``shard_halo``, no TPU kernel: the
@@ -33,15 +34,23 @@ the ported paths through their user entry points:
   build and one K4 exchange a row; the second block a CUDA graph replay)
   against the serial ``FusedWbfmStreamer`` and bit-equal to the same
   chain run eagerly, with K1 and K2 held against their plain versions at
-  one of its shards; on a machine with more than one GPU the same path
-  again (eager) on a (1, n_gpu) mesh, one shard a card; then the
-  time-sharded channelizer on (1, 4) logical shards (K4 frame halo, an
-  all-to-all of K5 steps) against the unsharded plain one;
+  one of its shards; the sharded float chain's ``fn`` on the same mesh
+  and blocks (fir with its streaming carry, and boxcar); on a machine
+  with more than one GPU the same path again (eager) on a (1, n_gpu)
+  mesh, one shard a card; then the time-sharded channelizer on (1, 4)
+  logical shards (K4 frame halo, an all-to-all of K5 steps; its second
+  call one graph replay holding all five launches) against the
+  unsharded plain one.  The three sharded functions, graphed against
+  ``graphs.disabled()`` at these 25 MB shapes: every output bit-equal, a
+  kept result unchanged by later calls, one ``cudaGraphLaunch`` a call
+  and the K3/K4+K5 runs the counters gained in a whole trace, device and
+  host ms a call, the output copies' device ms, peak memory;
 * the station batch: K1 and K2 over 8 stations of a 25 MB block each
   (phases 0..3 across them, carries and histories at a halo record's
   stride) in one launch each, against their plain versions and against
   one-station launches on the same rows, then
-  ``FusedWbfmBatchStreamer`` on that batch;
+  ``FusedWbfmBatchStreamer`` on that batch (a second block replayed, the
+  peak memory of the graphed batch);
 * the exact chain and the float chain's modes: the exact integer chain on
   the card against the CPU (bit-equal) and the golden vectors, ``simple_fm
   --mode exact``, ``--mode boxcar`` and ``--mode fir --deemph 75`` on the
@@ -78,15 +87,22 @@ the ported paths through their user entry points:
   ``multi_fm``), 100 reads after 8 warm-up reads: ``simple_fm --mode
   fused|fir|boxcar``, ``--mode fir --deemph 75``, ``--mode stereo
   --rds``, ``multi_fm --fused`` with and without ``--rds``, ``rtl_fm -M
-  fm|am`` in 5 interleaved rounds of each form, and ``rtl_fm -M
-  usb|lsb``, ``-M wbfm --rds``, ``multi_fm``'s plain front and both
-  station batches in one: the default (a CUDA graph replay a read after
-  the first read of a key) bit-equal to ``graphs.disabled()`` on every
-  output of every read, one ``cudaGraphLaunch`` a streamer a read and no
-  kernel launch after warm-up (a profiler trace of each form), K1/K2/K3
-  counters equal to the eager run's and one a read with a chunk; host ms
-  a read, real-time factor, device operations and launch calls a read,
-  busy share and peak memory of each form.
+  fm|am``, ``simple_fm --mode exact``, ``rtl_power --file`` (the PSD's
+  form without outputs: its bins read back once a round) and
+  ``FusedPfbStreamer`` (K3 alone, at 696,320 bytes) in 5 interleaved
+  rounds of each form, and ``rtl_fm -M usb|lsb``, ``-M wbfm --rds``,
+  ``multi_fm``'s plain front and both station batches in one: the
+  default (a CUDA graph replay a read after the first read of a key)
+  bit-equal to ``graphs.disabled()`` on every output of every read, one
+  ``cudaGraphLaunch`` a streamer a read and no kernel launch after
+  warm-up (a profiler trace of each form), K1/K2/K3 counters equal to
+  the eager run's and one a read with a chunk, and in each whole trace
+  the K1/K2/K3/K4+K5 runs the counters gained; the PSD's graphed reads
+  with no D2H copy and no synchronize; host ms a read, real-time factor,
+  device operations and launch calls a read, busy share and peak memory
+  of each form; then ``rtl_power`` scanning 5 hops over rtl_tcp from
+  the port's server on a fake dongle: one PSD streamer reset at each
+  hop, one capture for its one key, every other block a replay.
 
 Each path's launch counts are zeroed just before it runs and read just
 after; the audio is checked (length, tone SNR, agreement with the plain
@@ -97,7 +113,10 @@ library yardsticks (K2 and K3 a strided ``conv1d``, K3 also a batched
 at the ``multi_fm`` read of 696,320 bytes; the sp=4 sharded step eager and
 as a graph replay, beside the unsharded chain), the streamer and the
 CLIs with the host clock; the sp=4 step's launches and device operations
-are counted from one ``torch.profiler`` trace of each form; each kernel's
+are counted from one whole ``torch.profiler`` trace of each form (every
+trace here opens with pad launches outside the range it counts, and is
+taken again until each host call in that range has its device record);
+each kernel's
 roofline bound is computed from its shapes and the H100's published peaks.
 
 The last lines of stdout are the helper's JSON line (``{"helper":
@@ -193,11 +212,44 @@ TRACE_PAD_LAUNCHES = 64      # device work that opens a trace, left out of it
 TRACE_TRIES = 3              # traces taken until one holds every device record
 GRAPH_WB_READS = 32          # the wideband capture's reads, cycled
 GRAPH_BATCH_STATIONS = 8
-# the device kernels behind each counted wrapper, by counter name: a trace
-# must see as many of them as the counters gained
+PSD_FFT = 1024               # rtl_power's n_fft at 2.048 Msps
+PFB_FRAMES = 256             # K3's frames a chunk (multi_fm's spec)
+SCAN_HOPS = 5                # rtl_power's scan over the fake dongle
+SCAN_BLOCKS = 8              # reads a hop (-b)
+# the device kernels behind the counted wrappers, by counter names joined
+# with "+": a trace must see as many of them as the counters gained.  K4
+# and K5 launch one device kernel, shard_copy_kernel (csrc/halo.cu), so a
+# trace holds the sum of their counters against its runs
 KERNEL_EVENTS = {"fm_front": ("fm_front_kernel",),
                  "fm_resample": ("fm_resample_kernel",),
-                 "pfb_channelize": ("pfb64_kernel", "pfb_direct_kernel")}
+                 "pfb_channelize": ("pfb64_kernel", "pfb_direct_kernel"),
+                 "halo_pull+ring_shift": ("shard_copy_kernel",)}
+SHARDED_CALLS = 3            # calls in each form's trace of a sharded function
+
+
+def counted(counts: dict, key: str) -> int:
+    """The launches a ``KERNEL_EVENTS`` key stands for: the sum of its
+    counters in ``counts``."""
+    return sum(counts.get(name, 0) for name in key.split("+"))
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch counter, by name."""
+    from tpu_sdr_torch.ops import fused_channelizer as FC
+    from tpu_sdr_torch.ops import fused_fm as FF
+    from tpu_sdr_torch.parallel import cuda_halo as CH
+
+    return {**FF.LAUNCHES, **FC.LAUNCHES, **CH.LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    from tpu_sdr_torch.ops import fused_channelizer as FC
+    from tpu_sdr_torch.ops import fused_fm as FF
+    from tpu_sdr_torch.parallel import cuda_halo as CH
+
+    FF.reset_launch_counts()
+    FC.reset_launch_counts()
+    CH.reset_launch_counts()
 
 
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit):
@@ -337,7 +389,7 @@ def pfb_float64(data, carry, h_poly, spec, frames: int):
     return torch.cat([y.real, y.imag], dim=1).cpu().numpy()
 
 
-def wideband(dev, flush) -> dict:
+def wideband(dev, flush, smi: str) -> dict:
     """The wideband path: (a) K3 against its plain version on the 25 MB
     block, (b) ``multi_fm --fused`` on 1.024 s of 8 stations against the
     plain front, (c) device timings.  Returns the numbers for the result
@@ -429,7 +481,23 @@ def wideband(dev, flush) -> dict:
     snrs["bank_4x16"] = s
     print(f"channel-parallel K3 bank (1, 4) on {dev}: {s:.1f} dB vs the plain "
           f"full width, carry equal", flush=True)
-    del y_re, y_im, y_k, y_r
+    del y_re, y_im, y_k, y_r, bank
+
+    def make_bank():
+        b = CSF.make_sharded_pfb_fused(PM.make_mesh(1, 4, devices=[dev] * 4),
+                                       K, config.taps_per_branch,
+                                       spec.frames_per_chunk)
+        state = [carry]
+
+        def call(x):
+            out = b(x, state[0])
+            state[0] = out[2]
+            return out
+        return call, b.graphs
+
+    bank_graphs = graph_forms("channel-parallel K3 bank (1, 4)", make_bank,
+                              [data, data.flip(0), data],
+                              {"pfb_channelize": 4}, flush, smi)
 
     # ---- (b) the user entry point on 1.024 s of 8 stations ---------------
     n_path = WB_PATH_READS * WB_READ_BYTES // 2
@@ -546,7 +614,7 @@ def wideband(dev, flush) -> dict:
           f" ms, bound {b_read['bound_ms']:.5f} ms ({b_read['bound_by']})",
           flush=True)
     return {"err": err, "snr_db": snrs, "launches": launches, "ms": ms,
-            "bound": b, "bound_read": b_read,
+            "bound": b, "bound_read": b_read, "bank_graphs": bank_graphs,
             "library_snr_db": {"conv1d": s_lib, "matmul": s_mm},
             "path": {"complex": n_path, "stations": len(WB_CHANNELS),
                      "tone_db": tones, "fused_vs_plain_db": s_fronts,
@@ -631,41 +699,22 @@ def halo_kernels(dev) -> float:
 
 
 def step_ops(fn) -> dict:
-    """One ``torch.profiler`` trace of ``fn`` (after one untraced call):
-    the device operations it ran by kind, their device µs by name (cut to
-    40 characters), the span from the first one's start to the last one's
-    end, and the host's launch calls by name (kernel, graph, copy and
-    fill launches of the runtime)."""
+    """One whole ``torch.profiler`` trace of ``fn`` (after one untraced
+    call), taken as :func:`trace_reads` takes one: the device operations it
+    ran by kind, their device µs by name (cut to 40 characters), the span
+    from the first one's start to the last one's end, and the host's
+    launch calls by name (kernel, graph, copy and fill launches of the
+    runtime)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    device, device_us, host, spans = {}, {}, {}, []
-    for e in prof.events():
-        name = e.name
-        if e.device_type == DeviceType.CUDA:
-            low = name.lower()
-            kind = ("memcpy" if "memcpy" in low else "memset" if "memset" in low
-                    else "kernel")
-            device[kind] = device.get(kind, 0) + 1
-            device_us[name[:40]] = (device_us.get(name[:40], 0.0)
-                                    + e.time_range.elapsed_us())
-            spans.append((e.time_range.start, e.time_range.end))
-        elif "Launch" in name or name.startswith(
-                ("cudaMemcpy", "cudaMemset", "cuMemcpy", "cuMemset")):
-            host[name] = host.get(name, 0) + 1
-    span = (max(s[1] for s in spans) - min(s[0] for s in spans)
-            if spans else None)
-    return {"device_ops": sum(device.values()), "device": device,
-            "device_us": device_us, "device_busy_us": sum(device_us.values()),
-            "device_span_us": span, "host_launch_calls": sum(host.values()),
-            "host": host}
+    tr = trace_reads(lambda _: fn(), [None])
+    return {"device_ops": tr["device_ops_a_read"], "device": tr["device"],
+            "device_us": tr["device_us"], "device_busy_us": tr["busy_us"],
+            "device_span_us": tr["span_us"],
+            "host_launch_calls": sum(tr["host"].values()),
+            "host": tr["host"], "attempts": tr["attempts"]}
 
 
 def halo_records(dev, block) -> dict:
@@ -865,13 +914,169 @@ def shard_kernels(dev, block, got, shard: int = 2) -> None:
           f"matches the path's", flush=True)
 
 
-def channelizer_path(dev, flush) -> dict:
+def _tensors(x) -> list:
+    """The tensors of a nested result (lists and tuples), in order."""
+    import torch
+
+    if torch.is_tensor(x):
+        return [x]
+    if isinstance(x, (list, tuple)):
+        return [t for y in x for t in _tensors(y)]
+    return []
+
+
+def graph_forms(name: str, make, inputs, per_call: dict, flush,
+                smi: str) -> dict:
+    """A sharded function at its 25 MB shapes, graphed (the default: the
+    first call eager and captured, each later call one replay and a copy
+    of each output) against ``graphs.disabled()`` (eager).  ``make()``
+    gives a fresh (call(x) -> result, its ``StepGraphs``), the stream's
+    carry (if any) from its start.  Gates: every output of every call
+    bit-equal to eager, the launches equal and ``per_call`` a call, a
+    result kept from the first call unchanged by the later ones, one
+    capture, and in a whole trace of SHARDED_CALLS calls one
+    ``cudaGraphLaunch`` a call and the K3/K4+K5 runs the counters gained.
+    Measured: device ms a call (CUDA events, L2 flushed) and host ms a
+    call in each form, the device ms of the output copies alone, device
+    operations and host launch calls a call, the peak memory."""
+    import torch
+
+    from tpu_sdr_torch.utils import graphs
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    with graphs.disabled():
+        call, _ = make()
+        reset_launch_counts()
+        exp = [_tensors(call(x)) for x in inputs]
+        eager = launch_counts()
+    del call
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    call, steps = make()
+    reset_launch_counts()
+    got = [_tensors(call(x)) for x in inputs]
+    graphed = launch_counts()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    kept = [t.clone() for t in got[0]]
+    bad = [i for i, (e, g) in enumerate(zip(exp, got))
+           if len(e) != len(g) or not all(torch.equal(a, b)
+                                          for a, b in zip(e, g))]
+    require(not bad, f"graphs {name}: calls {bad} differ from "
+            f"graphs.disabled()")
+    require(graphed == eager and all(
+        eager.get(k, 0) == n * len(inputs) for k, n in per_call.items()),
+        f"graphs {name}: launches {graphed} graphed, {eager} eager, "
+        f"{per_call} a call")
+    require(steps.captures == 1 and steps.replays == len(inputs) - 1,
+            f"graphs {name}: {steps.captures} captures, {steps.replays} "
+            f"replays")
+    del exp
+    last = got[-1]
+    ms = device_ms({"eager": lambda: _eager(call, inputs[0]),
+                    "graphed": lambda: call(inputs[0]),
+                    "copies": lambda: [t.clone() for t in last]}, flush)
+    host = {"eager": host_ms(lambda: _eager(call, inputs[0])),
+            "graphed": host_ms(lambda: call(inputs[0]))}
+    require(all(torch.equal(t, k) for t, k in zip(got[0], kept)),
+            f"graphs {name}: a result kept from the first call changed")
+    trace = {}
+    for form in ("eager", "graphed"):
+        ctx = graphs.disabled() if form == "eager" else \
+            contextlib.nullcontext()
+        with ctx:
+            trace[form] = trace_reads(call, [inputs[0]] * SHARDED_CALLS,
+                                      reset_launch_counts)
+        gained = launch_counts()
+        seen = trace[form]["kernels"]
+        require(all(seen[k] == counted(gained, k) for k in KERNEL_EVENTS),
+                f"graphs {name} {form}: the trace saw kernels {seen}, the "
+                f"counters gained {gained}")
+    tg = trace["graphed"]
+    require(tg["graph_launches"] == SHARDED_CALLS,
+            f"graphs {name}: {tg['graph_launches']} graph launches for "
+            f"{SHARDED_CALLS} calls ({tg['host']})")
+    res = {"calls": len(inputs), "launches": graphed, "peak_mib":
+           peak / 2 ** 20, "output_mib": sum(t.numel() * t.element_size()
+                                             for t in last) / 2 ** 20,
+           "copies_ms": ms["copies"]}
+    for form in ("eager", "graphed"):
+        t = trace[form]
+        res[form] = {"device_ms": ms[form], "host_ms": host[form],
+                     "device_ops_a_call": t["device_ops_a_read"],
+                     "host_launch_calls_a_call":
+                         t["host_launch_calls_a_read"],
+                     "host": t["host"], "kernels": t["kernels"],
+                     "busy_share": t["busy_share"]}
+    e, g = res["eager"], res["graphed"]
+    print(f"graphs {name}: {len(inputs)} calls bit-equal to "
+          f"graphs.disabled(), a kept result unchanged; device ms a call "
+          f"eager {e['device_ms']:.4f} / graphed {g['device_ms']:.4f} (of "
+          f"it the output copies, {res['output_mib']:.1f} MiB, "
+          f"{ms['copies']:.4f}); host ms {e['host_ms']:.4f} / "
+          f"{g['host_ms']:.4f}; device ops a call "
+          f"{e['device_ops_a_call']:.1f} / {g['device_ops_a_call']:.1f}; "
+          f"host launch calls a call {e['host_launch_calls_a_call']:.1f} / "
+          f"{g['host_launch_calls_a_call']:.1f} ({g['host']}); launches "
+          f"{graphed} (kernels seen in the graphed trace {g['kernels']}); "
+          f"peak {res['peak_mib']:.1f} MiB ({smi})", flush=True)
+    return res
+
+
+def _eager(call, x):
+    from tpu_sdr_torch.utils import graphs
+
+    with graphs.disabled():
+        return call(x)
+
+
+def float_chain_graphs(dev, blocks, flush, smi: str) -> dict:
+    """The sharded float chain's ``fn`` (``make_sharded_wbfm``) on the
+    (2, 4) mesh of logical shards of ``dev`` over the sharded path's
+    blocks (4 stations x 25 MB each): the fir mode with its streaming
+    carry (``XlaStreamCarry``), the boxcar mode without one;
+    :func:`graph_forms` on each."""
+    from tpu_sdr_torch.parallel import mesh as PM
+    from tpu_sdr_torch.parallel import wbfm_sharded as WS
+    from tpu_sdr_torch.utils.design import WbfmConfig
+
+    mesh = PM.make_mesh(SHARD_DP, SHARD_SP,
+                        devices=[dev] * (SHARD_DP * SHARD_SP))
+    stations = blocks[0].shape[0]
+    inputs = [PM.shard_time(mesh, b) for b in (blocks[0], blocks[1],
+                                               blocks[0])]
+    out = {}
+    for mode in ("fir", "boxcar"):
+        carry_io = mode == "fir"
+
+        def make():
+            chain = WS.make_sharded_wbfm(mesh, WbfmConfig(filter_mode=mode),
+                                         carry_io=carry_io)
+            state = [WS.initial_xla_carry(stations, device=dev)]
+
+            def call(x):
+                if not carry_io:
+                    return chain.fn(x)
+                audio, counts, state[0] = chain.fn(x, state[0])
+                return audio, counts, state[0]
+            return call, chain.graphs
+
+        out[mode] = graph_forms(
+            f"sharded float chain --mode {mode} ({SHARD_DP}, {SHARD_SP}), "
+            f"{stations} stations", make, inputs, {}, flush, smi)
+    return out
+
+
+def channelizer_path(dev, flush, smi: str) -> dict:
     """The time-sharded channelizer (``make_sharded_channelizer``, K=64,
     8 taps a branch) on a (1, 4) mesh of logical shards of ``dev``, over a
     25 MB-block's worth of samples (12,533,760 complex, a tone 0.05 of a
-    channel above every channel centre), launch counts zeroed before and
-    read after; held against the unsharded plain PFB + demod, and each
-    channel's steady demod against its tone's phase step."""
+    channel above every channel centre): its first call runs eagerly and
+    captures the step, the second, with the launch counts zeroed before
+    and read after, is one graph replay (two K4 and three K5 launches in
+    it) and gives the same bits; held against the unsharded plain PFB +
+    demod, and each channel's steady demod against its tone's phase step;
+    then :func:`graph_forms` on it."""
     import torch
 
     from tpu_sdr_torch.ops import channelizer as chan
@@ -901,14 +1106,21 @@ def channelizer_path(dev, flush) -> dict:
         return F.quadrature_demod(y_re.T, y_im.T, F.QuadState(
             torch.ones(K, device=dev), torch.zeros(K, device=dev)))[0]
 
-    CH.reset_launch_counts()
     t0 = time.monotonic()
-    got = chain(re, im)
+    first = chain(re, im)  # eager, then captured
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
+    CH.reset_launch_counts()
+    got = chain(re, im)
+    torch.cuda.synchronize()
     launches = dict(CH.LAUNCHES)
-    for name, count in launches.items():
-        require(count > 0, f"the channelizer path never launched {name}")
+    require(chain.graphs.captures == chain.graphs.replays == 1,
+            "the channelizer's second call was no graph replay")
+    require(launches == {"halo_pull": 2, "ring_shift": SHARD_SP - 1},
+            f"the channelizer's replay launched {launches}")
+    require(torch.equal(first, got), "the channelizer's replay differs "
+            "from its eager first call")
+    del first
     exp = unsharded()
     require(got.shape == exp.shape == (K, n // K),
             f"channelizer demod {tuple(got.shape)}, expected (K, n/K)")
@@ -921,12 +1133,24 @@ def channelizer_path(dev, flush) -> dict:
                     "channelizer_unsharded": unsharded}, flush=flush)
     print(f"channelizer path (1, {SHARD_SP}) on {dev}: {K} channels x "
           f"{n // K} frames, vs unsharded max |d phase| {err:.3g} pi, tone "
-          f"steps within {step:.3g} of 0.1, launches {launches}, wall "
-          f"{wall:.3f} s", flush=True)
-    return {"launches": launches, "err": err, "ms": ms, "wall_s": wall}
+          f"steps within {step:.3g} of 0.1, launches in one replay "
+          f"{launches}, first call (eager + capture) wall {wall:.3f} s",
+          flush=True)
+    del got, chain
+
+    def make():
+        c = CS.make_sharded_channelizer(mesh, K, taps_per_branch=T)
+        return (lambda x: c(*x)), c.graphs
+
+    forms = graph_forms(f"time-sharded channelizer (1, {SHARD_SP})", make,
+                        [(re, im), (im, re), (re, im)],
+                        {"halo_pull": 2, "ring_shift": SHARD_SP - 1}, flush,
+                        smi)
+    return {"launches": launches, "err": err, "ms": ms, "wall_s": wall,
+            "graphs": forms}
 
 
-def sharded(dev, flush, u8_two) -> dict:
+def sharded(dev, flush, u8_two, smi: str) -> dict:
     """The sharded paths: (a) K4/K5 against their plain versions, (b) the
     (dp=2, sp=4) receiver on logical shards of ``dev`` against the serial
     chain, with K1/K2 held at one of its shards, (c) the peer path across
@@ -963,6 +1187,7 @@ def sharded(dev, flush, u8_two) -> dict:
     path, got = sharded_path([dev] * (SHARD_DP * SHARD_SP), SHARD_DP,
                              SHARD_SP, blocks, serial)
     shard_kernels(dev, blocks[0], got)
+    float_graphs = float_chain_graphs(dev, blocks, flush, smi)
     # the helper's timing row: dp row 0 of the first block, as the path
     # gives it (2 stations x 4 shards)
     n_bytes = blocks[0].shape[1] // SHARD_SP
@@ -982,7 +1207,7 @@ def sharded(dev, flush, u8_two) -> dict:
     del blocks, serial, got
 
     # ---- (d) the time-sharded channelizer: K4 halo, K5 all-to-all --------
-    chan = channelizer_path(dev, flush)
+    chan = channelizer_path(dev, flush, smi)
 
     # ---- (e) device timings ----------------------------------------------
     # K4 at the exchange of the sp=4 step (4 one-station records and the
@@ -1104,7 +1329,8 @@ def sharded(dev, flush, u8_two) -> dict:
                                   n_rec * ((2 * p.T + 2) * 2 * L
                                            + 30 * (p.T - 1)))}
     return {"err": err, "records": records, "path": path, "peer": peer,
-            "chan": chan, "ms": ms, "bounds": bounds, "host_ms": host,
+            "chan": chan, "float_graphs": float_graphs, "ms": ms,
+            "bounds": bounds, "host_ms": host,
             "ops": ops, "helper_launches": path["launches"]["shard_halo"],
             "halo_us": ms["halo_pull_step"] * 1e3,
             "halo_us_two_exchanges": (ms["halo_pull"]
@@ -1192,6 +1418,8 @@ def batch(dev, flush, data, taps, h_poly, spec) -> dict:
 
     # the user entry point on the batch
     host = rows.cpu().numpy()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     streamer = FF.FusedWbfmBatchStreamer(S, device=dev)
     streamer.phases = list(phases)
     FF.reset_launch_counts()
@@ -1202,6 +1430,14 @@ def batch(dev, flush, data, taps, h_poly, spec) -> dict:
     launches = dict(FF.LAUNCHES)
     require(launches == {"fm_front": 1, "fm_resample": 1},
             f"FusedWbfmBatchStreamer ran {launches}")
+    # the same block again (its carries moved on): the key's replay, and
+    # the peak memory of the graphed batch
+    streamer.demodulate(host)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    require(streamer.graphs.replays == 1 and FF.LAUNCHES == {
+        "fm_front": 2, "fm_resample": 2},
+        "the batch streamer's second block was no graph replay")
     one = FF.FusedWbfmStreamer(device=dev).demodulate(host[0])
     require(np.array_equal(audio[0], one), "the batch streamer's station 0 "
             "differs from the one-station streamer")
@@ -1212,7 +1448,8 @@ def batch(dev, flush, data, taps, h_poly, spec) -> dict:
           f"{audio.shape[1]} samples, launches {launches}, station 0 "
           f"bit-equal to FusedWbfmStreamer, tone {tone:.1f} dB, wall "
           f"{wall:.3f} s (with the {host.nbytes / 1e6:.0f} MB host-to-device "
-          f"copy)", flush=True)
+          f"copy and the capture); a second block a replay, peak "
+          f"{peak / 2 ** 20:.1f} MiB graphed", flush=True)
     del host, audio
 
     carries_c = [carries[j].contiguous() for j in range(S)]
@@ -1231,7 +1468,8 @@ def batch(dev, flush, data, taps, h_poly, spec) -> dict:
                                         for j in range(S)],
     }, flush=flush)
     return {"stations": S, "snr_db": worst, "err": err, "launches": launches,
-            "tone_db": tone, "wall_s": wall, "ms": ms}
+            "tone_db": tone, "wall_s": wall, "ms": ms,
+            "graphed_peak_mib": peak / 2 ** 20}
 
 
 def modes(dev, u8, spec) -> dict:
@@ -1788,34 +2026,65 @@ def receivers(dev, spec, smi: str) -> dict:
 
 
 def trace_device(path: str) -> dict:
-    """A ``torch.profiler`` Chrome trace read back: the device's busy share
-    (the union of its kernel, copy and fill intervals over the span of
-    every event in the trace), the CUDA streams that ran the host-to-device
-    copies, and those that ran K1 and K2."""
+    """A Chrome trace of ``utils.profiling.trace`` read back, counting only
+    what lies inside its ``TRACED_RANGE`` range (opened after its pad
+    launches): the host's launch and copy calls there, but for those made
+    while a stream was capturing (a new key's graph), each of which must
+    have its device record (``lost`` counts those without: a trace that
+    is not whole is taken again); the device's busy share (the union of
+    those records' intervals over the range's host wall); the CUDA
+    streams that ran the host-to-device copies, and those that ran K1 and
+    K2."""
+    from tpu_sdr_torch.utils.profiling import TRACED_RANGE
+
     with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"]
                   if e.get("ph") == "X" and "dur" in e]
+    span = [e for e in events if e.get("cat") == "user_annotation"
+            and e.get("name") == TRACED_RANGE]
+    require(len(span) == 1, f"trace: {len(span)} '{TRACED_RANGE}' ranges")
+    lo = float(span[0]["ts"])
+    hi = lo + float(span[0]["dur"])
+
+    def corr(e):
+        return e.get("args", {}).get("correlation")
+
+    host = [e for e in events if e.get("cat") in ("cuda_runtime",
+                                                    "cuda_driver")]
+    captured = _capture_spans((e["name"], float(e["ts"]),
+                               float(e["ts"]) + float(e["dur"]))
+                              for e in host)
+    calls = {corr(e) for e in host
+             if _is_call(e["name"]) and lo <= float(e["ts"]) <= hi
+             and not _in_spans(float(e["ts"]), captured)}
+    records = [e for e in events
+               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+               and corr(e) in calls]
+    lost = calls - {corr(e) for e in records}
+    lost_names: dict = {}
+    for e in host:
+        if corr(e) in lost:
+            lost_names[e["name"]] = lost_names.get(e["name"], 0) + 1
     on_device = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
-                       for e in events
-                       if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+                       for e in records)
     busy, end = 0.0, -math.inf
     for t0, t1 in on_device:
         busy += max(0.0, t1 - max(t0, end))
         end = max(end, t1)
-    span = (max(float(e["ts"]) + float(e["dur"]) for e in events)
-            - min(float(e["ts"]) for e in events))
 
     def streams(match):
-        return sorted({e.get("args", {}).get("stream") for e in events
+        return sorted({e.get("args", {}).get("stream") for e in records
                        if e.get("cat") in ("kernel", "gpu_memcpy")
                        and match(e["name"])})
 
-    return {"busy_share": busy / span, "busy_us": busy, "span_us": span,
-            "device_ops": len(on_device),
+    return {"busy_share": busy / (hi - lo), "busy_us": busy,
+            "span_us": hi - lo, "device_ops": len(on_device),
+            "host_calls": len(calls), "lost": len(lost),
+            "lost_names": lost_names, "captures": len(captured),
             "htod_streams": streams(lambda n: "HtoD" in n),
             "kernel_streams": streams(lambda n: "fm_front_kernel" in n
                                       or "fm_resample_kernel" in n),
-            "htod_copies": sum("HtoD" in e["name"] for e in events
+            "htod_copies": sum("HtoD" in e["name"] for e in records
                                if e.get("cat") == "gpu_memcpy")}
 
 
@@ -1830,6 +2099,111 @@ class _StatsRecords(logging.Handler):
     def emit(self, record):
         if hasattr(record, "block_stats"):
             self.stats.append(record.block_stats)
+
+
+def serve_fake(source_factory=None, testmode=False, max_clients=1,
+               queue_limit=TCP_QUEUE):
+    """The port's rtl_tcp server on a fresh fake dongle, in a thread:
+    (server, close)."""
+    import threading
+
+    from tpu_sdr_torch import api as tapi
+    from tpu_sdr_torch.control import fake
+    from tpu_sdr_torch.stream.rtl_tcp_server import RtlTcpServer
+
+    fake.clear_fake_devices()
+    fake.register_fake_device(fake.FakeDeviceSpec(
+        serial="ingest01", source_factory=source_factory))
+    sdr = tapi.RtlSdr.open_with_index(0)
+    sdr.set_sample_rate(REALTIME_SPS)
+    sdr.set_testmode(testmode)
+    sdr.reset_buffer()
+    srv = RtlTcpServer(sdr, "127.0.0.1", 0, queue_limit=queue_limit,
+                       max_clients=max_clients)
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    deadline = time.monotonic() + 10
+    while srv.bound_port is None and time.monotonic() < deadline:
+        time.sleep(0.01)
+    require(srv.bound_port is not None, "rtl_tcp server did not bind")
+
+    def close():
+        srv.stop()
+        t.join(timeout=10)
+        sdr.close()
+        fake.clear_fake_devices()
+        require(not t.is_alive(), "rtl_tcp server did not stop")
+
+    return srv, close
+
+
+def psd_scan(dev, smi: str) -> dict:
+    """``rtl_power`` scanning SCAN_HOPS hops of SCAN_BLOCKS reads (after
+    its one settle read a hop) over the network from the port's
+    ``RtlTcpServer`` on a fake dongle, at 2.048 Msps and ``n_fft`` 1024,
+    eager (``graphs.disabled()``) then graphed.  Gates: one PSD streamer
+    a scan, reset at each hop; graphed, one capture for the one block
+    length and every other block a replay; a row a hop.  Printed: the
+    scan's wall in each form (host clock, the fake dongle unpaced)."""
+    import torch
+
+    from tpu_sdr_torch.apps import rtl_power
+    from tpu_sdr_torch.control import fake
+    from tpu_sdr_torch.ops import spectrum as SP
+    from tpu_sdr_torch.utils import graphs
+
+    made = []
+
+    class Recorded(SP.PsdStreamer):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            made.append(self)
+
+    low = 94_000_000
+    high = low + SCAN_HOPS * int(PSD_RATE * rtl_power.HOP_CROP)
+    require(len(rtl_power.hop_centers(low, high, PSD_RATE)) == SCAN_HOPS,
+            "the scan's range does not make its hops")
+    res = {"hops": SCAN_HOPS, "blocks_a_hop": SCAN_BLOCKS}
+    real = SP.PsdStreamer
+    SP.PsdStreamer = Recorded
+    try:
+        for form in ("eager", "graphed"):
+            made.clear()
+            srv, close = serve_fake(lambda: fake.SynthFmSource(
+                capture_rate=PSD_RATE, seconds=0.5), queue_limit=64)
+            argv = ["-f", f"{low}:{high}:2k", "-s", str(PSD_RATE), "-b",
+                    str(SCAN_BLOCKS), "--tcp", f"127.0.0.1:{srv.bound_port}"]
+            ctx = graphs.disabled() if form == "eager" else \
+                contextlib.nullcontext()
+            try:
+                with ctx:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    text, _ = run_cli("rtl_power", argv)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+            finally:
+                close()
+            rows = text.decode().strip().splitlines()
+            require(len(rows) == SCAN_HOPS, f"rtl_power scan ({form}): "
+                    f"{len(rows)} rows for {SCAN_HOPS} hops")
+            require(len(made) == 1 and made[0].n_fft == PSD_FFT,
+                    f"rtl_power scan ({form}): {len(made)} PSD streamers")
+            g = made[0].graphs
+            res[form] = {"wall_s": wall, "captures": g.captures,
+                         "replays": g.replays, "keys": len(g.keys)}
+    finally:
+        SP.PsdStreamer = real
+    gr = res["graphed"]
+    require(gr["captures"] == gr["keys"] == 1 and gr["replays"]
+            == SCAN_HOPS * SCAN_BLOCKS - 1,
+            f"rtl_power scan: {gr} (one capture a key, not one a hop)")
+    print(f"rtl_power scan over rtl_tcp: {SCAN_HOPS} hops x {SCAN_BLOCKS} "
+          f"reads of {CLI_READ} B, a row a hop; one streamer a scan: "
+          f"{gr['captures']} capture, {gr['replays']} replays; wall eager "
+          f"{res['eager']['wall_s']:.3f} s / graphed {gr['wall_s']:.3f} s "
+          f"({smi})", flush=True)
+    return res
 
 
 def ingest(dev, u8, spec, smi: str) -> dict:
@@ -1852,12 +2226,11 @@ def ingest(dev, u8, spec, smi: str) -> dict:
     import numpy as np
     import torch
 
-    from tpu_sdr_torch import api as tapi
     from tpu_sdr_torch import native
     from tpu_sdr_torch.control import fake
     from tpu_sdr_torch.ops import fused_fm as FF
     from tpu_sdr_torch.stream import feeder as FD
-    from tpu_sdr_torch.stream.rtl_tcp_server import RtlTcpServer
+    from tpu_sdr_torch.utils import profiling
     from tpu_sdr_torch.utils import synth
 
     out = {}
@@ -1869,33 +2242,7 @@ def ingest(dev, u8, spec, smi: str) -> dict:
     out["native"] = {"library": os.path.basename(native.library_path()),
                      "build_s": native.build_seconds}
 
-    def serve(source_factory=None, testmode=False, max_clients=1,
-              queue_limit=TCP_QUEUE):
-        """The port's rtl_tcp server on a fresh fake dongle, in a thread."""
-        fake.clear_fake_devices()
-        fake.register_fake_device(fake.FakeDeviceSpec(
-            serial="ingest01", source_factory=source_factory))
-        sdr = tapi.RtlSdr.open_with_index(0)
-        sdr.set_sample_rate(REALTIME_SPS)
-        sdr.set_testmode(testmode)
-        sdr.reset_buffer()
-        srv = RtlTcpServer(sdr, "127.0.0.1", 0, queue_limit=queue_limit,
-                           max_clients=max_clients)
-        t = threading.Thread(target=srv.serve_forever, daemon=True)
-        t.start()
-        deadline = time.monotonic() + 10
-        while srv.bound_port is None and time.monotonic() < deadline:
-            time.sleep(0.01)
-        require(srv.bound_port is not None, "rtl_tcp server did not bind")
-
-        def close():
-            srv.stop()
-            t.join(timeout=10)
-            sdr.close()
-            fake.clear_fake_devices()
-            require(not t.is_alive(), "rtl_tcp server did not stop")
-
-        return srv, close
+    serve = serve_fake
 
     with tempfile.TemporaryDirectory() as tmp:
         # ---- (b) the feed alone from a file -------------------------------
@@ -1978,23 +2325,18 @@ def ingest(dev, u8, spec, smi: str) -> dict:
         path = os.path.join(tmp, "feed_read.u8")
         n_complex = INGEST_READS * CLI_READ // 2
 
-        def run_streamer(on_device: bool, profile_to: str | None = None):
+        def run_streamer(on_device: bool, trace_dir: str | None = None):
             fd = FD.BlockFeeder(FD.FileSource(path), block_bytes=CLI_READ)
             fd.start()
             require(fd.is_native, "the file feeder is not native")
             streamer = FF.FusedWbfmStreamer(device=dev)
             blocks = fd.device_blocks(dev) if on_device else fd.blocks()
-            acts = [torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA]
-            with (torch.profiler.profile(activities=acts) if profile_to
-                  else contextlib.nullcontext()) as prof:
+            with profiling.trace(trace_dir):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 audio = [streamer.demodulate(b) for b in blocks]
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-            if profile_to:
-                prof.export_chrome_trace(profile_to)
             fd.stop()
             require(fd.dropped == 0, "file replay dropped a block")
             return np.concatenate(audio), wall
@@ -2013,9 +2355,19 @@ def ingest(dev, u8, spec, smi: str) -> dict:
                 "device_blocks audio differs from blocks() audio")
         main = {}
         for kind in ("pageable", "device"):
-            tr = os.path.join(tmp, f"main_{kind}.json")
-            run_streamer(kind == "device", tr)
-            main[kind] = trace_device(tr)
+            for attempt in range(1, TRACE_TRIES + 1):  # until one is whole
+                tr_dir = os.path.join(tmp, f"main_{kind}_{attempt}")
+                run_streamer(kind == "device", tr_dir)
+                traces = glob.glob(os.path.join(tr_dir, "*.pt.trace.json"))
+                require(len(traces) == 1, f"the trace wrote {traces}")
+                main[kind] = trace_device(traces[0])
+                if not main[kind]["lost"]:
+                    break
+            require(not main[kind]["lost"], f"{kind} feed: no whole trace "
+                    f"in {TRACE_TRIES}: {main[kind]['lost']} calls lost "
+                    f"{main[kind]['lost_names']}, "
+                    f"{main[kind]['captures']} captures seen")
+            main[kind]["attempts"] = attempt
             main[kind]["wall_s"] = statistics.median(walls[kind])
             main[kind]["walls_s"] = walls[kind]
             main[kind]["realtime_x"] = (n_complex / main[kind]["wall_s"]
@@ -2075,12 +2427,15 @@ def ingest(dev, u8, spec, smi: str) -> dict:
             reads += pending >= spec.chunk_bytes
             pending %= spec.chunk_bytes
         tcp = {}
-        for traced in (False, True):
+        for traced in (False,) + (True,) * TRACE_TRIES:
+            if "traced" in tcp and not tcp["traced"]["lost"]:
+                break  # a whole trace is in
             station._pos = 0
             srv, close = serve(lambda: Paced(station))
             argv = ["--tcp", f"127.0.0.1:{srv.bound_port}", "--mode", "fused",
                     "--blocks", str(TCP_BLOCKS)]
-            trace_dir = os.path.join(tmp, "tcp_trace")
+            trace_dir = os.path.join(
+                tmp, f"tcp_trace_{tcp.get('traced', {}).get('attempts', 0)}")
             if traced:
                 argv += ["--trace", trace_dir]
             rec.stats.clear()
@@ -2110,7 +2465,8 @@ def ingest(dev, u8, spec, smi: str) -> dict:
                         set(tr["htod_streams"]) & set(tr["kernel_streams"]),
                         f"tcp: HtoD on {tr['htod_streams']}, K1/K2 on "
                         f"{tr['kernel_streams']}")
-                tcp["traced"] = {"wall_s": wall, **tr}
+                attempts = tcp.get("traced", {}).get("attempts", 0) + 1
+                tcp["traced"] = {"wall_s": wall, "attempts": attempts, **tr}
                 continue
             lat = sorted(st.latencies_ms)
             tcp.update({"blocks": st.blocks, "dropped": st.dropped_blocks,
@@ -2121,6 +2477,10 @@ def ingest(dev, u8, spec, smi: str) -> dict:
                         "latency_ms_first": st.latencies_ms[0],
                         "latency_ms_max_after_first": max(st.latencies_ms[1:]),
                         "latency_ms": st.latencies_ms})
+        require(not tcp["traced"]["lost"], f"tcp: no whole trace in "
+                f"{TRACE_TRIES}: {tcp['traced']['lost']} calls lost "
+                f"{tcp['traced']['lost_names']}, "
+                f"{tcp['traced']['captures']} captures seen")
         print(f"simple_fm --tcp --mode fused, paced at {REALTIME_SPS} S/s, "
               f"{TCP_BLOCKS} reads: 0 dropped, launches {tcp['launches']}, tone "
               f"{tcp['tone_db']:.1f} dB, audio bit-equal to --file; read "
@@ -2218,6 +2578,26 @@ def ingest(dev, u8, spec, smi: str) -> dict:
     return out
 
 
+def _capture_spans(events) -> list:
+    """The host intervals from each ``cudaStreamBeginCapture`` to the
+    next ``cudaStreamEndCapture`` in ``events`` ((name, start, end)
+    triples): a call made there is recorded into a graph, and puts no work
+    on the device."""
+    spans, begin = [], None
+    for name, t0, t1 in sorted(events, key=lambda e: e[1]):
+        if name.startswith(("cudaStreamBeginCapture", "cuStreamBeginCapture")):
+            begin = t0
+        elif begin is not None and name.startswith(
+                ("cudaStreamEndCapture", "cuStreamEndCapture")):
+            spans.append((begin, t1))
+            begin = None
+    return spans
+
+
+def _in_spans(t, spans) -> bool:
+    return any(a <= t <= b for a, b in spans)
+
+
 def _is_call(name: str) -> bool:
     """A host runtime call that puts work on the device."""
     return "Launch" in name or name.startswith(
@@ -2231,8 +2611,9 @@ def trace_reads(fn, reads, start=lambda: None) -> dict:
     calls, the host's launch and copy calls by name, and the device's
     runs of each kernel of ``KERNEL_EVENTS`` by counter name.
 
-    Only the host calls made inside the "traced reads" range count, with
-    the device records of their correlation.  A trace opens with
+    Only the host calls made inside the "traced reads" range count (but
+    for those recorded into a graph while a stream captured), with the
+    device records of their correlation.  A trace opens with
     ``TRACE_PAD_LAUNCHES`` small launches and a pause, outside that range:
     on the H100 a trace's first few device records (the first 0.6-2.2
     ms) came back missing, in a process that had traced before.  Then
@@ -2265,9 +2646,18 @@ def trace_reads(fn, reads, start=lambda: None) -> dict:
                 and e.device_type() != DeviceType.CUDA]
         require(len(span) == 1, f"trace: {len(span)} 'traced reads' ranges")
         lo, hi = span[0].start_ns(), span[0].end_ns()
+        captured = _capture_spans(
+            (e.name(), e.start_ns(), e.end_ns()) for e in raw
+            if e.device_type() != DeviceType.CUDA)
         calls = {e.correlation_id(): e.name() for e in raw
                  if e.device_type() != DeviceType.CUDA and _is_call(e.name())
-                 and lo <= e.start_ns() <= hi}
+                 and lo <= e.start_ns() <= hi
+                 and not _in_spans(e.start_ns(), captured)}
+        syncs: dict = {}
+        for e in raw:
+            if e.device_type() != DeviceType.CUDA and "Synchronize" in \
+                    e.name() and lo <= e.start_ns() <= hi:
+                syncs[e.name()] = syncs.get(e.name(), 0) + 1
         records = [e for e in raw if e.device_type() == DeviceType.CUDA
                    and e.correlation_id() in calls
                    and e.name() != "traced reads"]
@@ -2279,14 +2669,18 @@ def trace_reads(fn, reads, start=lambda: None) -> dict:
               flush=True)
     require(not lost, f"trace: {len(lost)} of {len(calls)} host calls without "
             f"a device record in each of {TRACE_TRIES} traces")
-    device, host, spans = {}, {}, []
+    device, host, spans, device_us = {}, {}, [], {}
     kernels = dict.fromkeys(KERNEL_EVENTS, 0)
+    dtoh = 0
     for e in records:
         name, low = e.name(), e.name().lower()
         kind = ("memcpy" if "memcpy" in low else "memset" if "memset" in low
                 else "kernel")
         device[kind] = device.get(kind, 0) + 1
+        dtoh += kind == "memcpy" and "dtoh" in low
         spans.append((e.start_ns() / 1e3, e.end_ns() / 1e3))
+        device_us[name[:40]] = (device_us.get(name[:40], 0.0)
+                                + (e.end_ns() - e.start_ns()) / 1e3)
         for counter, names in KERNEL_EVENTS.items():
             kernels[counter] += any(k in name for k in names)
     for name in calls.values():
@@ -2305,7 +2699,10 @@ def trace_reads(fn, reads, start=lambda: None) -> dict:
                                   if "Graph" in k),
             "kernel_launches": sum(v for k, v in launches.items()
                                    if "Graph" not in k),
-            "host": host, "kernels": kernels, "attempts": attempt}
+            "host": host, "kernels": kernels, "attempts": attempt,
+            "device_us": device_us, "dtoh_copies": dtoh, "syncs": syncs,
+            "span_us": (max(t1 for _, t1 in spans) - min(t0 for t0, _ in spans)
+                        if spans else None)}
 
 
 def same_outputs(a, b) -> bool:
@@ -2344,11 +2741,13 @@ def graphs_phase(dev, u8_two, smi: str) -> dict:
     from tpu_sdr_torch.models import rds as R
     from tpu_sdr_torch.models import wbfm as TW
     from tpu_sdr_torch.models import wbfm_batched as TB
+    from tpu_sdr_torch.models import wbfm_exact as TE
     from tpu_sdr_torch.models import wbfm_stereo as TS
     from tpu_sdr_torch.models import wbfm_wideband as WB
     from tpu_sdr_torch.native import f32_to_s16
     from tpu_sdr_torch.ops import fused_channelizer as FC
     from tpu_sdr_torch.ops import fused_fm as FF
+    from tpu_sdr_torch.ops import spectrum as SP
     from tpu_sdr_torch.utils import graphs, synth
     from tpu_sdr_torch.utils.design import WbfmConfig
 
@@ -2479,6 +2878,34 @@ def graphs_phase(dev, u8_two, smi: str) -> dict:
             return [s.demodulate(buf)]
         return read, [s]
 
+    def exact():
+        """``simple_fm --mode exact``'s read: its s16 audio goes out as it
+        is."""
+        s = TE.WbfmExactStreamer(device=dev)
+
+        def read(buf):
+            return [s.demodulate(buf)]
+        return read, [s]
+
+    def psd():
+        """``rtl_power --file``'s read: the PSD's sums stay on the card,
+        so a read returns its segment count, and each round ends with the
+        one read-back of the bins (``finalize_db``), held bit-equal."""
+        s = SP.PsdStreamer(PSD_FFT, device=dev)
+
+        def read(buf):
+            s.accumulate(buf)
+            return [s.segments]
+        return read, [s], s.finalize_db
+
+    def pfb():
+        s = FC.FusedPfbStreamer(K, config.taps_per_branch, PFB_FRAMES,
+                                device=dev)
+
+        def read(buf):
+            return list(s.channelize(buf))
+        return read, [s]
+
     # (name, make, reads, complex samples a read, capture rate, rounds)
     cli = [
         ("simple_fm --mode fused",
@@ -2493,6 +2920,9 @@ def graphs_phase(dev, u8_two, smi: str) -> dict:
         ("multi_fm --fused --rds", lambda: multi(True), wide_reads),
         ("rtl_fm -M fm", lambda: narrow("fm"), mono_reads),
         ("rtl_fm -M am", lambda: narrow("am"), mono_reads),
+        ("simple_fm --mode exact", exact, mono_reads),
+        ("rtl_power --file", psd, mono_reads),
+        ("FusedPfbStreamer (K3 alone)", pfb, wide_reads),
     ]
     others = [
         ("rtl_fm -M usb", lambda: narrow("usb"), mono_reads),
@@ -2509,27 +2939,26 @@ def graphs_phase(dev, u8_two, smi: str) -> dict:
          cyclic(u8_two, CLI_READ, GRAPH_BATCH_STATIONS)),
         ("WbfmBatchStreamer x2", float_batch, cyclic(u8_two, CLI_READ, 2)),
     ]
-    def reset():
-        FF.reset_launch_counts()
-        FC.reset_launch_counts()
-
-    def counts():
-        return {**FF.LAUNCHES, **FC.LAUNCHES}
+    reset, counts = reset_launch_counts, launch_counts
 
     out = {}
     for rounds, table in ((GRAPH_ROUNDS, cli), (1, others)):
         for name, make, reads in table:
-            is_wide = name.startswith("multi_fm")
-            rate = config.capture_rate if is_wide else REALTIME_SPS
+            is_wide = name.startswith(("multi_fm", "FusedPfbStreamer"))
+            is_psd = name.startswith("rtl_power")
+            rate = (config.capture_rate if is_wide else PSD_RATE if is_psd
+                    else REALTIME_SPS)
             n_complex = reads[0].shape[-1] // 2
             warm, timed = reads[:GRAPH_WARM], reads[GRAPH_WARM:]
             with graphs.disabled():
-                eager_fn, _ = make()
+                eager_fn, *rest = make()
+                eager_final = rest[1] if len(rest) > 1 else None
                 for r in warm:
                     eager_fn(r)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
-            graph_fn, streamers = make()
+            graph_fn, streamers, *rest = make()
+            graph_final = rest[0] if rest else None
             for r in warm:
                 graph_fn(r)
             walls = {"eager": [], "graphed": []}
@@ -2548,6 +2977,9 @@ def graphs_phase(dev, u8_two, smi: str) -> dict:
                         got[form] = [fn(r) for r in timed]
                         torch.cuda.synchronize()
                         walls[form].append(time.perf_counter() - t0)
+                        final = eager_final if form == "eager" else graph_final
+                        if final is not None:  # the round's one read-back
+                            got[form].append([final()])
                     launches[form] = counts()
                 bad = [i for i, (a, b) in enumerate(zip(got["eager"],
                                                         got["graphed"]))
@@ -2557,8 +2989,8 @@ def graphs_phase(dev, u8_two, smi: str) -> dict:
                 require(launches["eager"] == launches["graphed"],
                         f"graphs: {name}: launches {launches}")
             peak = torch.cuda.max_memory_allocated(dev)
-            with_chunk = sum(1 for g in got["graphed"]
-                             if np.asarray(g[0]).shape[-1])
+            with_chunk = sum(1 for g in got["graphed"][:len(timed)]
+                             if np.ndim(g[0]) and np.shape(g[0])[-1])
             lg = launches["graphed"]
             if "fused" in name and not is_wide:
                 require(lg["fm_front"] == lg["fm_resample"] == with_chunk,
@@ -2567,6 +2999,8 @@ def graphs_phase(dev, u8_two, smi: str) -> dict:
             if is_wide and "plain" not in name:
                 require(lg["pfb_channelize"] == with_chunk,
                         f"graphs: {name}: K3 {lg}, {with_chunk} reads")
+            require(not any(lg.get(k) for k in ("halo_pull", "ring_shift")),
+                    f"graphs: {name}: halo kernels launched: {lg}")
             # one trace of each form over reads after the rounds
             tr_reads = timed[:GRAPH_TRACE_READS]
             before = []
@@ -2590,7 +3024,7 @@ def graphs_phase(dev, u8_two, smi: str) -> dict:
             # the counters' launches are the kernels the device ran: inside
             # the replayed graphs as well as eagerly
             for form, seen in ((f, trace[f]["kernels"]) for f in trace):
-                require(all(seen[k] == gained[form].get(k, 0)
+                require(all(seen[k] == counted(gained[form], k)
                             for k in KERNEL_EVENTS),
                         f"graphs: {name} {form}: the trace saw kernels "
                         f"{seen}, the counters gained {gained[form]}")
@@ -2603,6 +3037,16 @@ def graphs_phase(dev, u8_two, smi: str) -> dict:
                         * len(streamers),
                         f"graphs: {name}: {tg['host']} over "
                         f"{len(tr_reads)} reads after warm-up, {reps} replays")
+            if is_psd:
+                # the form without outputs copies nothing back and waits
+                # for no stream: the one device synchronize closes the
+                # range, an event wait fences the staging buffer
+                waits = {k: v for k, v in tg["syncs"].items()
+                         if "Event" not in k}
+                require(tg["dtoh_copies"] == 0
+                        and waits == {"cudaDeviceSynchronize": 1},
+                        f"graphs: {name}: {tg['dtoh_copies']} D2H copies, "
+                        f"synchronizes {tg['syncs']} over the traced reads")
             keys = [len(s.graphs.keys) for s in streamers]
             res = {"reads_a_round": len(timed), "rounds": rounds,
                    "read_bytes": int(reads[0].shape[-1]),
@@ -2619,7 +3063,8 @@ def graphs_phase(dev, u8_two, smi: str) -> dict:
                     "realtime_x": n_complex * len(timed) / wall / rate,
                     **{k: trace[form][k] for k in (
                         "device_ops_a_read", "host_launch_calls_a_read",
-                        "busy_share", "busy_us", "wall_us", "host")}}
+                        "busy_share", "busy_us", "wall_us", "host",
+                        "dtoh_copies", "syncs")}}
             out[name] = res
             e, g = res["eager"], res["graphed"]
             print(f"graphs {name}: {len(timed)} reads of "
@@ -2638,7 +3083,8 @@ def graphs_phase(dev, u8_two, smi: str) -> dict:
                   f"{res['trace_attempts']}), peak "
                   f"{res['peak_mib']:.1f} "
                   f"MiB ({smi})", flush=True)
-            del eager_fn, graph_fn, streamers
+            del eager_fn, graph_fn, streamers, eager_final, graph_final
+    out["rtl_power scan"] = psd_scan(dev, smi)
     return out
 
 
@@ -2928,12 +3374,12 @@ def main(argv=None) -> int:
               f"({smi})", flush=True)
 
     # ---- the wideband path: K3 and multi_fm --fused ---------------------
-    wb = wideband(dev, flush_buf.zero_)
+    wb = wideband(dev, flush_buf.zero_, smi)
     ms.update(wb["ms"])
     bounds["pfb_channelize"] = wb["bound"]
 
     # ---- the sharded paths: K4, K5, ShardedFusedStreamer, channelizer ----
-    sh = sharded(dev, flush_buf.zero_, u8_two)
+    sh = sharded(dev, flush_buf.zero_, u8_two, smi)
     ms.update(sh["ms"])
     bounds.update(sh["bounds"])
     for name, t in ms.items():
@@ -2973,8 +3419,11 @@ def main(argv=None) -> int:
                  "wall_s": app_s, "realtime_x": n_path / app_s / REALTIME_SPS},
         "snr_pfb_channelize_db": wb["snr_db"], "wideband_path": wb["path"],
         "sharded_path": sh["path"], "peer_path": sh["peer"],
+        "sharded_graphs": {"float_chain": sh["float_graphs"],
+                           "bank": wb["bank_graphs"],
+                           "channelizer": sh["chan"]["graphs"]},
         "channelizer_path": {k: v for k, v in sh["chan"].items()
-                             if k != "ms"},
+                             if k not in ("ms", "graphs")},
         "shard_halo": sh["records"], "sharded_step_host_ms": sh["host_ms"],
         "sharded_step_ops": sh["ops"], "halo_us": sh["halo_us"],
         "halo_us_two_exchanges": sh["halo_us_two_exchanges"],

@@ -1132,7 +1132,9 @@ def _graph_cases():
     from tpu_sdr_torch.models import rds as TR
     from tpu_sdr_torch.models import wbfm as TW
     from tpu_sdr_torch.models import wbfm_batched as TB
+    from tpu_sdr_torch.models import wbfm_exact as TE
     from tpu_sdr_torch.models import wbfm_stereo as TS
+    from tpu_sdr_torch.ops import spectrum as SP
 
     def lengths(mean, jitter, seed, long=0, n=24):
         rng = np.random.default_rng(seed)
@@ -1207,12 +1209,27 @@ def _graph_cases():
         "am": multimode("am", squelch_db=-40.0),
         "usb": multimode("usb", fine_tune_hz=120.0),
         "lsb": multimode("lsb"),
+        "exact": (lambda d: TE.WbfmExactStreamer(device=d), fm(60_000, 10),
+                  lengths(3_296, 8, 10) // 8 * 8,
+                  lambda s, b: (s.demodulate(b),)),
+        "psd": (lambda d: SP.PsdStreamer(1024, device=d), fm(60_000, 11),
+                lengths(5_000, 4_000, 11), _psd_feed),
+        "pfb": (lambda d: FC.FusedPfbStreamer(device=d), wide,
+                lengths(40_000, 38_000, 12, long=3 * 32_768 + 100),
+                lambda s, b: tuple(y.T for y in s.channelize(b))),
     }
+
+
+def _psd_feed(s, b):
+    """The PSD's bins after a read that added segments, else nothing."""
+    before = s.segments
+    s.accumulate(b)
+    return (s.finalize_db(),) if s.segments > before else (np.zeros(0),)
 
 
 GRAPH_CASES = ["fused", "fused_batch", "fused_batch_one_phase", "fir", "boxcar", "fir_deemph_mpx",
                "float_batch", "wideband_plain", "wideband_fused", "stereo",
-               "rds", "fm", "am", "usb", "lsb"]
+               "rds", "fm", "am", "usb", "lsb", "exact", "psd", "pfb"]
 
 
 def _launch_counts():
@@ -1259,7 +1276,7 @@ def test_graphed_streamer_equals_disabled(dev, name):
     if name.startswith("fused"):
         assert eager_launches["fm_front"] == with_chunk
         assert eager_launches["fm_resample"] == with_chunk
-    if name == "wideband_fused":
+    if name in ("wideband_fused", "pfb"):
         assert eager_launches["pfb_channelize"] == with_chunk
     assert peak < 2 << 30, f"{name}: peak {peak / 2**20:.1f} MiB"
 
@@ -1279,3 +1296,151 @@ def test_graph_capture_failure_names_the_streamer(dev):
     with pytest.raises(graphs.GraphCaptureError, match="syncing"):
         g((), [np.ones(8, np.float32)], [torch.zeros(1, device=dev)])
     assert g.keys == [] and g.graph is None
+
+
+def test_exact_chain_step_has_no_hidden_sync(dev):
+    """The exact chain's block step (the graphed step's body) on the card
+    under ``set_sync_debug_mode("error")``: no op reads a device value on
+    the host (a 0-d index tensor turned into an int would)."""
+    from tpu_sdr_torch.models import wbfm_exact as TE
+
+    data = np.asarray(synth.synth_wbfm_u8(20_000, seed=13)[0], np.uint8)
+    block = torch.from_numpy(data[:32_768]).to(dev)
+    config = TE.WbfmExactConfig()
+    state = TE.init_state(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            audio, count, state = TE.demodulate_block(block, state, config)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(count) > 0
+
+
+def test_psd_graphed_reads_do_not_wait_for_the_card(dev):
+    """The PSD's form without outputs: after the first read, distinct
+    blocks back to back under ``set_sync_debug_mode("error")`` (no D2H
+    copy, no synchronize; the staging buffer's fence is an event), then
+    the sums bit-equal to ``graphs.disabled()`` on the same blocks: a
+    block written into the staging buffer while the previous one's copy
+    was in flight would show here."""
+    from tpu_sdr_torch.ops import spectrum as SP
+    from tpu_sdr_torch.utils import graphs
+
+    rng = np.random.default_rng(14)
+    blocks = [rng.integers(0, 256, 262_144, dtype=np.uint8)
+              for _ in range(48)]
+    with graphs.disabled():
+        ref = SP.PsdStreamer(1024, device=dev)
+        for b in blocks:
+            ref.accumulate(b)
+    ps = SP.PsdStreamer(1024, device=dev)
+    ps.accumulate(blocks[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for b in blocks[1:]:
+            ps.accumulate(b)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert (ps.graphs.captures, ps.graphs.replays) == (1, len(blocks) - 1)
+    assert ps.segments == ref.segments == 48 * 128
+    assert torch.equal(ps.state.acc, ref.state.acc)
+    # a hop reset keeps the graph
+    ps.reset()
+    ps.accumulate(blocks[0])
+    assert ps.graphs.captures == 1
+
+
+def _sharded_function(name, dev):
+    """name -> (call(x) -> tensors, three inputs, launches a call)."""
+    from tpu_sdr_torch.parallel import channelizer_sharded as CS
+    from tpu_sdr_torch.parallel import channelizer_sharded_fused as CSF
+    from tpu_sdr_torch.parallel import mesh as PM
+    from tpu_sdr_torch.parallel import wbfm_sharded as WS
+
+    rng = np.random.default_rng(len(name))
+    if name.startswith("float"):
+        dp, sp = 2, 4
+        mesh = PM.make_mesh(dp, sp, devices=[dev] * 8)
+        carry_io = name == "float_fir"
+        chain = WS.make_sharded_wbfm(mesh, design.WbfmConfig(
+            filter_mode="fir" if carry_io else "boxcar"), carry_io=carry_io)
+        blocks = [rng.integers(0, 256, (dp, 2 * sp * 24_480), dtype=np.uint8)
+                  for _ in range(3)]
+        state = {"carry": WS.initial_xla_carry(dp, device=dev)}
+
+        def call(b):
+            if not carry_io:
+                return chain.fn(chain.shard(b))
+            audio, counts, state["carry"] = chain.fn(chain.shard(b),
+                                                     state["carry"])
+            return audio, counts, state["carry"]
+        return chain.graphs, call, blocks, {}
+    if name == "time_channelizer":
+        chan = CS.make_sharded_channelizer(
+            PM.make_mesh(1, 4, devices=[dev] * 4), 64)
+        xs = [(rng.standard_normal(64 * 4 * 256).astype(np.float32),
+               rng.standard_normal(64 * 4 * 256).astype(np.float32))
+              for _ in range(3)]
+        return chan.graphs, lambda x: chan(*x), xs, {"halo_pull": 2,
+                                                     "ring_shift": 3}
+    bank = CSF.make_sharded_pfb_fused(PM.make_mesh(1, 4, devices=[dev] * 4))
+    chunks = [rng.integers(0, 256, 2 * bank.spec.chunk_bytes, dtype=np.uint8)
+              for _ in range(3)]
+    state = {"carry": FC.init_carry(bank.spec, dev)}
+
+    def feed(b):
+        out = bank(b, state["carry"])
+        state["carry"] = out[2]
+        return out
+    return bank.graphs, feed, chunks, {"pfb_channelize": 4}
+
+
+def _tensors(x):
+    if torch.is_tensor(x):
+        return [x]
+    if isinstance(x, (list, tuple)):
+        return [t for y in x for t in _tensors(y)]
+    return []
+
+
+@pytest.mark.parametrize("name", ["float_fir", "float_boxcar",
+                                  "time_channelizer", "pfb_bank"])
+def test_graphed_sharded_function_equals_disabled(dev, name):
+    """The three sharded functions on logical shards of one card: three
+    calls (the second and third replays), bit-equal to
+    ``graphs.disabled()``, the kernels' counters the same (two K4 and
+    three K5 launches, or four K3, a call), and a result kept from the
+    first call unchanged by the later ones."""
+    from tpu_sdr_torch.parallel import cuda_halo as CH
+    from tpu_sdr_torch.utils import graphs
+
+    def counts():
+        return {**FC.LAUNCHES, **CH.LAUNCHES}
+
+    def reset():
+        FC.reset_launch_counts()
+        CH.reset_launch_counts()
+
+    _, call, inputs, per_call = _sharded_function(name, dev)
+    reset()
+    with graphs.disabled():
+        exp = [_tensors(call(x)) for x in inputs]
+    eager = counts()
+    steps, call, inputs, _ = _sharded_function(name, dev)
+    reset()
+    got = [_tensors(call(x)) for x in inputs]
+    kept = [t.clone() for t in got[0]]
+    got.append(_tensors(call(inputs[0])))
+    assert counts() == {k: v * 4 // 3 for k, v in eager.items()}
+    assert all(eager[k] == 3 * n for k, n in per_call.items())
+    assert (steps.captures, steps.replays) == (1, 3)
+    assert steps.graph is not None
+    for e, g in zip(exp, got):
+        assert len(e) == len(g) > 0
+        for x, y in zip(e, g):
+            assert x.device == y.device and torch.equal(x, y), name
+    for t, k in zip(got[0], kept):
+        assert torch.equal(t, k)

@@ -10,7 +10,9 @@ block functions called one read at a time), ``graphs.disabled()`` must
 give the same bits, and the audio must match the JAX streamer on the same
 reads at the bar the other ``test_torch_*`` files hold it to: >= 100 dB
 (the narrowband modes with the JAX weights converted and their first 32
-samples left out, as ``test_torch_multimode.py`` does).  Also here:
+samples left out, as ``test_torch_multimode.py`` does), bit-equal for the
+exact chain (``test_torch_exact.py``'s bar) and within 0.01 dB for the
+PSD (``test_torch_spectrum.py``'s).  Also here:
 checkpoint and resume through the static buffers, the float chain's keys
 at the CLI's 262,144-byte reads, the helper's own rules (eviction, carries
 assigned from outside, the SSB mixer's index as a tensor), and a soak of
@@ -28,9 +30,12 @@ from tpu_sdr.models import multimode as JM
 from tpu_sdr.models import rds as JR
 from tpu_sdr.models import wbfm as JW
 from tpu_sdr.models import wbfm_batched as JB
+from tpu_sdr.models import wbfm_exact as JE
 from tpu_sdr.models import wbfm_stereo as JS
 from tpu_sdr.models import wbfm_wideband as JWB
+from tpu_sdr.ops import pallas_channelizer as JPC
 from tpu_sdr.ops import pallas_fm
+from tpu_sdr.ops import spectrum as JSP
 from tpu_sdr_torch import convert
 from tpu_sdr_torch.models import multimode as TM
 from tpu_sdr_torch.models import rds as TR
@@ -39,9 +44,11 @@ from tpu_sdr_torch.models import wbfm_batched as TB
 from tpu_sdr_torch.models import wbfm_exact as TE
 from tpu_sdr_torch.models import wbfm_stereo as TS
 from tpu_sdr_torch.models import wbfm_wideband as WB
+from tpu_sdr_torch.ops import fused_channelizer as FC
 from tpu_sdr_torch.ops import fused_fm as FF
+from tpu_sdr_torch.ops import spectrum as SP
 from tpu_sdr_torch.stream import checkpoint as C
-from tpu_sdr_torch.utils import graphs, synth
+from tpu_sdr_torch.utils import design, graphs, synth
 from tpu_sdr_torch.utils.design import WbfmConfig
 
 torch.set_num_threads(1)
@@ -50,6 +57,9 @@ CPU = torch.device("cpu")
 READS = 64
 CHUNK = FF.default_spec().chunk_bytes  # 130,560
 WB_CONFIG = dict(num_channels=64, channels=(3, 60))
+PSD_DB_TOL = 0.01  # tests/test_torch_spectrum.py's bar
+PSD_FFT = 256
+PFB = (64, 8, 64)  # K, taps a branch, frames a chunk: 8,192-byte chunks
 
 
 def _snr_db(ref, got):
@@ -82,6 +92,8 @@ class Case:
     jax: object = None    # () -> feed-like callable, or (it, a hook that
     #                       puts the JAX weights into a port streamer)
     skip: int = 0         # leading samples the JAX comparison leaves out
+    bar: str = "snr"      # against JAX: "snr" >= 100 dB, "equal" bit for
+    #                       bit, "db" within PSD_DB_TOL
 
     def reads(self):
         at = 0
@@ -371,6 +383,87 @@ def _multimode_case(mode: str, **kw):
                 _lengths(3_300, 700, 2, 16), feed, eager, jax, skip=32)
 
 
+def _exact_case():
+    data = np.asarray(synth.synth_wbfm_u8(130_000, noise_std=0.02,
+                                          seed=21)[0], np.uint8)
+
+    def eager():
+        def fn(block, st):
+            audio, count, st = TE.demodulate_block(block, st,
+                                                   TE.WbfmExactConfig())
+            return (audio[:int(count)],), st
+
+        return EagerLoop(8, fn, TE.init_state(CPU), None)
+
+    def jax():
+        s = JE.WbfmExactStreamer()
+        return lambda b: (s.demodulate(b),)
+
+    return Case(lambda d: TE.WbfmExactStreamer(device=d), data,
+                _lengths(3_300, 700, 8, 22), lambda s, b: (s.demodulate(b),),
+                eager, jax, bar="equal")
+
+
+def _psd_feed(s, b):
+    """The bins after a read that added segments, else nothing."""
+    before = s.segments
+    s.accumulate(b)
+    return (s.finalize_db(),) if s.segments > before else (np.zeros(0),)
+
+
+def _psd_case():
+    data = np.asarray(synth.synth_wbfm_u8(40_000, noise_std=0.02,
+                                          seed=23)[0], np.uint8)
+
+    def eager():
+        window = SP.hann(PSD_FFT)
+        w = torch.from_numpy(window)
+
+        def fn(block, st):
+            st = SP.psd_accumulate(block, st, w, PSD_FFT)
+            return (torch.from_numpy(SP.psd_db(st, window)),), st
+
+        return EagerLoop(2 * PSD_FFT, fn, SP.psd_init(PSD_FFT, CPU),
+                         (np.zeros(0),))
+
+    def jax():
+        s = JSP.PsdStreamer(PSD_FFT)
+        return lambda b: _psd_feed(s, b)
+
+    return Case(lambda d: SP.PsdStreamer(PSD_FFT, device=d), data,
+                _lengths(1_000, 900, 2, 24), _psd_feed, eager, jax, bar="db")
+
+
+def _pfb_feed(s, b):
+    """K3's (m, K) frames, time on the last axis."""
+    return tuple(y.T for y in s.channelize(b))
+
+
+def _pfb_case():
+    rng = np.random.default_rng(25)
+    data = rng.integers(0, 256, 64 * 11_000, dtype=np.uint8)
+    chunk = FC.default_spec(*PFB).chunk_bytes
+
+    def eager():
+        spec = FC.default_spec(*PFB)
+        taps = FC.kernel_taps(design.design_pfb(*PFB[:2]))
+
+        def fn(block, carry):
+            y_re, y_im, carry = FC.channelize(block, carry, taps, spec)
+            return (y_re.T, y_im.T), carry
+
+        return EagerLoop(chunk, fn, FC.init_carry(spec, CPU),
+                         (np.zeros((64, 0), np.float32),) * 2)
+
+    def jax():
+        s = JPC.PallasPfbStreamer(*PFB, interpret=True)
+        return lambda b: tuple(np.asarray(y).T for y in s.channelize(b))
+
+    return Case(lambda d: FC.FusedPfbStreamer(*PFB, device=d), data,
+                _lengths(10_000, 9_000, 2, 26, long=3 * chunk + 100),
+                _pfb_feed, eager, jax)
+
+
 CASES = {
     "fused": _fused_case,
     "fused_batch": lambda: _fused_batch_case([0, 3]),
@@ -390,6 +483,9 @@ CASES = {
     "am": lambda: _multimode_case("am", squelch_db=-40.0),
     "usb": lambda: _multimode_case("usb", fine_tune_hz=120.0),
     "lsb": lambda: _multimode_case("lsb"),
+    "exact": _exact_case,
+    "psd": _psd_case,
+    "pfb": _pfb_case,
 }
 
 
@@ -463,12 +559,18 @@ def test_matches_jax(cases, name):
         e = np.concatenate([x[k] for x in exp], axis=-1)
         g = np.concatenate([x[k] for x in got], axis=-1)
         assert e.shape == g.shape, (k, e.shape, g.shape)
-        s = _snr_db(e[..., case.skip:], g[..., case.skip:])
-        assert s >= 100.0, f"{name} output {k}: {s:.1f} dB"
+        if case.bar == "equal":
+            assert e.dtype == g.dtype and np.array_equal(e, g), name
+        elif case.bar == "db":
+            np.testing.assert_allclose(g, e, rtol=0, atol=PSD_DB_TOL)
+        else:
+            s = _snr_db(e[..., case.skip:], g[..., case.skip:])
+            assert s >= 100.0, f"{name} output {k}: {s:.1f} dB"
 
 
 @pytest.mark.parametrize("name", ["fused", "fir_deemph_mpx", "wideband_fused",
-                                  "stereo", "usb", "rds"])
+                                  "stereo", "usb", "rds", "exact", "psd",
+                                  "pfb"])
 def test_checkpoint_mid_stream_resumes_bit_equal(cases, name, tmp_path):
     """A checkpoint taken after read 30 (the carries are the static
     buffers then), loaded into a fresh streamer and into one whose steps
@@ -586,6 +688,117 @@ def test_helper_outputs_do_not_alias_its_buffers():
     assert float(start) == 5.0
     (y3, _), _, _ = g(2, [np.zeros(3, np.float32)], [torch.zeros(1)])
     np.testing.assert_array_equal(y3, [0.0, 0.0, 0.0])
+
+
+def _sum_step(static, inputs, carries):
+    acc, = carries
+    return [], [acc + inputs[0].sum()], static
+
+
+def test_helper_no_output_form_moves_only_its_carries():
+    g = graphs.StepGraphs("toy", _sum_step, CPU)
+    acc = torch.zeros(())
+    for k, x in enumerate((np.ones(3, np.float32), np.full(3, 2.0, np.float32),
+                           np.ones(3, np.float32))):
+        (acc,), aux = g.advance(k % 2, [x], [acc])
+        assert aux == k % 2
+    assert float(acc) == 12.0 and (g.captures, g.replays) == (2, 1)
+    with graphs.disabled():
+        (off,), _ = graphs.StepGraphs("toy", _sum_step, CPU).advance(
+            0, [np.ones(3, np.float32)], [torch.zeros(())])
+    assert float(off) == 3.0
+    with pytest.raises(ValueError, match="one output form"):
+        g((), [np.ones(3, np.float32)], [acc])
+    with pytest.raises(ValueError, match="without outputs"):
+        graphs.StepGraphs("toy", _toy_step, CPU).advance(
+            1, [np.ones(2, np.float32)], [torch.zeros(1)])
+
+
+def _wide_step(static, inputs, carries):
+    """Two column views of one tensor, and a new carry."""
+    x, = inputs
+    both = torch.stack([x, x * static], dim=1)
+    return [both[:, 0], both[:, 1]], [carries[0] + 1], None
+
+
+def test_helper_device_outputs_are_the_callers():
+    """A device output (and a new carry) kept across later calls does not
+    change: each is a tensor of its own, a column view copied whole."""
+    g = graphs.StepGraphs("toy", _wide_step, CPU)
+    (a, b), (c,), _ = g.on_device(3.0, [np.arange(4, dtype=np.float32)],
+                                  [torch.zeros(1)])
+    kept = [t.clone() for t in (a, b, c)]
+    c2 = c
+    for k in range(3):
+        (a2, b2), (c2,), _ = g.on_device(
+            3.0, [np.full(4, k + 7.0, np.float32)], [c2])
+    assert g.replays == 3
+    for t, k in zip((a, b, c), kept):
+        assert torch.equal(t, k)
+    assert a.is_contiguous() and b.is_contiguous()
+    assert a.untyped_storage().data_ptr() != b.untyped_storage().data_ptr()
+    assert float(c2) == 4.0 and torch.equal(b2, torch.full((4,), 27.0))
+    with graphs.disabled():
+        (x, y), (z,), _ = graphs.StepGraphs("toy", _wide_step, CPU).on_device(
+            3.0, [np.arange(4, dtype=np.float32)], [torch.zeros(1)])
+    assert torch.equal(x, kept[0]) and torch.equal(y, kept[1])
+
+
+def test_psd_streamer_reset_keeps_its_graphs():
+    """A hop reset zeroes the sums and the count in place: the next hop
+    replays the same key and gives what a new streamer gives."""
+    data = np.asarray(synth.synth_wbfm_u8(8_192, seed=27)[0], np.uint8)
+    s = SP.PsdStreamer(PSD_FFT, device=CPU)
+    s.accumulate(data[:4_096])
+    s.accumulate(data[4_096:8_192])
+    s.reset()
+    assert s.segments == 0 and float(s.state.acc.abs().sum()) == 0.0
+    s.accumulate(data[8_192:12_288])
+    fresh = SP.PsdStreamer(PSD_FFT, device=CPU)
+    fresh.accumulate(data[8_192:12_288])
+    np.testing.assert_array_equal(s.finalize_db(), fresh.finalize_db())
+    assert (s.graphs.captures, s.graphs.replays) == (1, 2)
+
+
+def test_rtl_power_scan_captures_once_a_key_not_once_a_hop(monkeypatch):
+    """A scan of several hops over a fake dongle builds one PSD streamer,
+    reset at each hop: one capture for its one block length, every other
+    block a replay, and the rows those of a new streamer a hop (the JAX
+    CLI's rows, as tests/test_torch_spectrum.py holds them)."""
+    import contextlib
+    import io
+
+    from tpu_sdr_torch.apps import rtl_power as trp
+    from tpu_sdr_torch.control import fake as tfake
+
+    made = []
+
+    class Recorded(SP.PsdStreamer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    rate = 1_020_000
+    argv = ["-f", f"94000000:{94_000_000 + 3 * rate}:8k", "-s", str(rate),
+            "-b", "2", "--torch-device", "cpu"]
+    hops = len(trp.hop_centers(94_000_000, 94_000_000 + 3 * rate, rate,
+                               trp.HOP_CROP))
+    tfake.clear_fake_devices()
+    tfake.register_fake_device(tfake.FakeDeviceSpec(
+        serial="pw000002",
+        source_factory=lambda: tfake.SynthFmSource(capture_rate=rate)))
+    monkeypatch.setattr(SP, "PsdStreamer", Recorded)
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            assert trp.main(argv) == 0
+    finally:
+        tfake.clear_fake_devices()
+    assert hops >= 3 and len(out.getvalue().strip().splitlines()) == hops
+    assert len(made) == 1
+    s = made[0]
+    assert len(s.graphs.keys) == s.graphs.captures == 1
+    assert s.graphs.replays == 2 * hops - 1
 
 
 def test_helper_checks_the_carry_count():

@@ -197,13 +197,16 @@ def main(argv=None) -> int:
                 print(f"Scanning {len(centers)} hop(s), FFT {n_fft}, "
                       f"bin {rate / n_fft:.0f} Hz", file=sys.stderr)
                 done = 0
+                # one streamer a scan, reset at each hop: its graphs are
+                # captured once a block length, not once a hop
+                ps = PsdStreamer(n_fft, device=device)
                 try:
                     while args.passes == 0 or done < args.passes:
                         for center in centers:
                             tune(center)
                             for _ in range(settle):
                                 read_one()
-                            ps = PsdStreamer(n_fft, device=device)
+                            ps.reset()
                             for _ in range(args.blocks):
                                 data = read_one()
                                 if data is None:

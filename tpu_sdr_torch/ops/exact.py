@@ -17,6 +17,11 @@ with the valid count beside them as a 0-d tensor: nothing waits for the
 device until a caller trims.  The golden vectors of the original C
 ``rtl_fm`` (``tests/golden_vectors.py``) hold each stage bit for bit.
 
+Nothing here reads a device value on the host: an element picked by a
+0-d index tensor is gathered (:func:`_at`), never indexed with Python's
+``[]``, which would turn the index into a host int.  So a block is one
+CUDA graph capture (``models.wbfm_exact.WbfmExactStreamer``).
+
 The integer semantics are made explicit rather than left to a dtype: the
 products and sums that may pass 2^31 run in int64 and are wrapped to the
 int32 range arithmetically (:func:`wrap_i32`), as a Rust ``as i32`` or a
@@ -47,6 +52,11 @@ def wrap_i16(v: torch.Tensor) -> torch.Tensor:
 def trunc_div(a: torch.Tensor, b) -> torch.Tensor:
     """Integer division truncating toward zero (Rust ``/`` on i32)."""
     return torch.div(a, b, rounding_mode="trunc")
+
+
+def _at(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``x[i]`` for a 0-d index tensor, as a 0-d tensor, without a sync."""
+    return x.index_select(0, i.reshape(1)).reshape(())
 
 
 def rotate_90_u8(buf: torch.Tensor) -> torch.Tensor:
@@ -121,8 +131,8 @@ def boxcar_decimate(re: torch.Tensor, im: torch.Tensor, state: BoxcarState,
     new_prev = total - count * d
     # the trailing partial group's sum (zeros beyond the data)
     last = count.clamp(max=n_groups - 1)
-    tail_re = torch.where(new_prev > 0, groups_re[last], 0)
-    tail_im = torch.where(new_prev > 0, groups_im[last], 0)
+    tail_re = torch.where(new_prev > 0, _at(groups_re, last), 0)
+    tail_im = torch.where(new_prev > 0, _at(groups_im, last), 0)
     i32 = torch.int32
     return (groups_re.to(i32), groups_im.to(i32), count.to(i32),
             BoxcarState(new_prev.to(i32), tail_re.to(i32), tail_im.to(i32)))
@@ -186,7 +196,8 @@ def fm_discriminate(re: torch.Tensor, im: torch.Tensor, count: torch.Tensor,
     out = fast_atan2_i32(c_im, c_re)
     out = torch.cat([exact_atan2_scaled(c_im[:1], c_re[:1]), out[1:]])
     last = (count.to(_I64) - 1).clamp(min=0)
-    return wrap_i16(out), count, DiscriminatorState(re[last], im[last])
+    return wrap_i16(out), count, DiscriminatorState(_at(re, last),
+                                                      _at(im, last))
 
 
 class ResamplerState(NamedTuple):
@@ -226,10 +237,10 @@ def boxcar_resample(x: torch.Tensor, count: torch.Tensor,
     prev_cs = torch.cat([torch.zeros(1, dtype=_I64, device=dev), cs_at_e[:-1]])
     sums = wrap_i32(cs_at_e - prev_cs)
     out = wrap_i16(trunc_div(sums, fast // slow))
-    last_total = torch.where(count > 0, cs[(count - 1).clamp(min=0)],
+    last_total = torch.where(count > 0, _at(cs, (count - 1).clamp(min=0)),
                              state.now_lpr.to(_I64))
     consumed = torch.where(out_count > 0,
-                           cs_at_e[(out_count - 1).clamp(min=0)], 0)
+                           _at(cs_at_e, (out_count - 1).clamp(min=0)), 0)
     new_now = wrap_i32(last_total - consumed)
     i32 = torch.int32
     return out, out_count.to(i32), ResamplerState(new_now.to(i32),

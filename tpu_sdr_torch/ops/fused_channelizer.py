@@ -37,7 +37,7 @@ from torch import nn
 
 from tpu_sdr_torch import kernels
 from tpu_sdr_torch.ops import channelizer as chan
-from tpu_sdr_torch.utils import design
+from tpu_sdr_torch.utils import design, graphs
 
 # Kernel launches of the wrapper: the main path's proof that it ran K3.
 # Only the wrapper's CUDA branch adds to it.
@@ -236,7 +236,11 @@ class FusedPfb(nn.Module):
 class FusedPfbStreamer:
     """Feed u8 blocks of any size, receive (m, K) channel frames: whole
     chunks (``spec.chunk_bytes``) go through K3, the residual leads the
-    next call.  Output scale is ``pfb_analyze``'s on normalised samples."""
+    next call.  Output scale is ``pfb_analyze``'s on normalised samples.
+
+    K3 is the step, run through ``utils.graphs`` (one CUDA graph replay a
+    call on the card), keyed on the number of chunks; Y_re and Y_im come
+    to the host in one copy."""
 
     def __init__(self, num_channels: int = 64, taps_per_branch: int = 8,
                  frames_per_chunk: int = 256, *, device: str | torch.device):
@@ -247,6 +251,12 @@ class FusedPfbStreamer:
         self.model = FusedPfb(self.h_poly, self.spec, device=self.device)
         self.state = init_carry(self.spec, self.device)
         self._pending = np.zeros(0, dtype=np.uint8)
+        self.graphs = graphs.StepGraphs("FusedPfbStreamer", self._step,
+                                        self.device)
+
+    def _step(self, _static, inputs, carries):
+        y_re, y_im, new = self.model(inputs[0], carries[0])
+        return [y_re, y_im], [new], None
 
     def channelize(self, buf: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         data = np.concatenate([self._pending, np.asarray(buf, np.uint8)])
@@ -255,6 +265,6 @@ class FusedPfbStreamer:
         if usable == 0:
             z = np.zeros((0, self.spec.out_channels), np.float32)
             return z, z
-        block = torch.from_numpy(data[:usable]).to(self.device)
-        y_re, y_im, self.state = self.model(block, self.state)
-        return y_re.cpu().numpy(), y_im.cpu().numpy()
+        (y_re, y_im), (self.state,), _ = self.graphs((), [data[:usable]],
+                                                     [self.state])
+        return y_re, y_im

@@ -8,6 +8,13 @@ into fftshifted bins.  The accumulator stays on the device across blocks;
 :func:`psd_db` (numpy float64, copied from the JAX package) reads it back
 once, when the hop is finalised.  The segment count, moved only by block
 sizes, is a host int.
+
+:class:`PsdStreamer` runs :func:`psd_accumulate` through ``utils.graphs``
+in its form without outputs: on the card a block is one H2D copy and one
+graph replay, and nothing waits for the device until ``finalize_db``.
+``rtl_power`` keeps one streamer a scan and calls :meth:`PsdStreamer.reset`
+between hops, so each block length is captured once a scan, as JAX's jit
+cache compiles it once.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ import numpy as np
 import torch
 
 from tpu_sdr_torch.ops.fm import u8_to_f32
+from tpu_sdr_torch.utils import graphs
 
 
 class PsdState(NamedTuple):
@@ -68,7 +76,21 @@ def psd_db(state: PsdState, window: np.ndarray) -> np.ndarray:
 
 
 class PsdStreamer:
-    """Feed u8 blocks, read dB bins once at the end."""
+    """Feed u8 blocks, read dB bins once at the end.
+
+    The step is keyed on the usable block length; its one carry is
+    ``acc``, and the segment count comes back as the step's aux.
+
+    cuFFT under capture: a captured FFT runs the plan that the key's eager
+    first call created and left in PyTorch's cuFFT plan cache
+    (``torch.backends.cuda.cufft_plan_cache``), and a replay after that
+    plan was destroyed would read freed memory.  The cache destroys plans
+    only when it is cleared, shrunk, or full when a new plan comes in.  So
+    before each block the streamer checks that the cache holds at least
+    as many plans as after its last capture and is not full; if not, it
+    drops its graphs (their next blocks run eagerly and capture again).
+    Before it captures, it grows the cache's limit, if need be, past
+    every plan its keys could add."""
 
     def __init__(self, n_fft: int = 1024, *, device: str | torch.device):
         self.n_fft = n_fft
@@ -77,6 +99,26 @@ class PsdStreamer:
         self.window = torch.from_numpy(self.window_np).to(self.device)
         self.state = psd_init(n_fft, self.device)
         self._pending = np.zeros(0, np.uint8)
+        self.graphs = graphs.StepGraphs("PsdStreamer", self._step,
+                                        self.device)
+        self._plans = 0  # the plan cache's size after the last capture
+
+    def _step(self, _static, inputs, carries):
+        new = psd_accumulate(inputs[0], PsdState(carries[0], 0),
+                             self.window, self.n_fft)
+        return [], [new.acc], new.count
+
+    def _hold_plans(self) -> None:
+        """Keep the cuFFT plans of the graphs alive (see the class
+        docstring)."""
+        if self.device.type != "cuda":
+            return
+        cache = torch.backends.cuda.cufft_plan_cache[self.graphs.device.index]
+        if self.graphs.keys and not self._plans <= cache.size < \
+                cache.max_size:
+            self.graphs.clear()
+        if cache.size + graphs.MAX_KEYS >= cache.max_size:
+            cache.max_size = cache.size + 2 * graphs.MAX_KEYS
 
     def accumulate(self, buf: np.ndarray) -> None:
         data = np.concatenate([self._pending,
@@ -85,9 +127,22 @@ class PsdStreamer:
         usable = len(data) - (len(data) % quantum)
         self._pending = data[usable:]
         if usable:
-            self.state = psd_accumulate(
-                torch.from_numpy(data[:usable]).to(self.device), self.state,
-                self.window, self.n_fft)
+            self._hold_plans()
+            captures = self.graphs.captures
+            (acc,), n_seg = self.graphs.advance((), [data[:usable]],
+                                                [self.state.acc])
+            self.state = PsdState(acc, self.state.count + n_seg)
+            if self.graphs.captures != captures and \
+                    self.device.type == "cuda":
+                self._plans = torch.backends.cuda.cufft_plan_cache[
+                    self.graphs.device.index].size
+
+    def reset(self) -> None:
+        """A new hop: the sums to zero in place (the graphs' carry) and the
+        count to 0, keeping the captured graphs."""
+        self.state.acc.zero_()
+        self.state = PsdState(self.state.acc, 0)
+        self._pending = np.zeros(0, np.uint8)
 
     @property
     def segments(self) -> float:

@@ -11,6 +11,12 @@ counterpart of ``tpu_sdr/parallel/channelizer_sharded.py``.
    through ``cuda_halo.all_to_all`` (n-1 steps of K5 on a CUDA mesh).
    After it each shard owns all frames of K/S channels.
 3. The per-channel quadrature FM demod runs on each channel block.
+
+On a mesh whose shards all sit on one place (``Mesh.single_place``) the
+whole pipeline runs through ``utils.graphs``, as ``jax.jit`` runs JAX's:
+keyed on the input's length, one CUDA graph replay a call on a card, with
+K4's two launches and K5's n-1 inside it; the demod is handed out as a
+tensor of its own.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ from tpu_sdr_torch.ops import channelizer as chan
 from tpu_sdr_torch.ops import fm as F
 from tpu_sdr_torch.parallel import cuda_halo as CH
 from tpu_sdr_torch.parallel.mesh import Mesh
-from tpu_sdr_torch.utils import design
+from tpu_sdr_torch.utils import design, graphs
 
 
 @dataclass(frozen=True)
@@ -33,6 +39,8 @@ class ShardedChannelizer:
     mesh: Mesh
     num_channels: int
     fn: Callable
+    # the graphed fn's cache (a mesh on one place), else None
+    graphs: graphs.StepGraphs | None = None
 
     def __call__(self, re, im) -> torch.Tensor:
         """(re, im): (n,) wideband f32 (numpy or torch) -> demod (K, n/K),
@@ -65,7 +73,7 @@ def make_sharded_channelizer(mesh: Mesh, num_channels: int,
         return [x[s * n_loc:(s + 1) * n_loc].to(d).contiguous()
                 for s, d in enumerate(devices)]
 
-    def fn(re, im) -> torch.Tensor:
+    def eager(re, im) -> torch.Tensor:
         re_s, im_s = split(re), split(im)
         # local PFB from the left neighbour's frame halo
         h_re = CH.pull_left_halo_cuda(re_s, (rows - 1) * K)
@@ -90,4 +98,17 @@ def make_sharded_channelizer(mesh: Mesh, num_channels: int,
             out.append(demod.to(mesh.home))
         return torch.cat(out)
 
-    return ShardedChannelizer(mesh=mesh, num_channels=K, fn=fn)
+    steps = (graphs.StepGraphs(
+        "ShardedChannelizer",
+        lambda _static, inputs, _carries: ([eager(*inputs)], [], None),
+        mesh.home) if mesh.single_place else None)
+
+    def fn(re, im) -> torch.Tensor:
+        if steps is None:
+            return eager(re, im)
+        ins = [np.ascontiguousarray(x, dtype=np.float32)
+               if isinstance(x, np.ndarray) else x for x in (re, im)]
+        return steps.on_device((), ins, [])[0][0]
+
+    return ShardedChannelizer(mesh=mesh, num_channels=K, fn=fn,
+                              graphs=steps)

@@ -9,18 +9,23 @@ The input framing is shared, so no collective runs in the steady state:
 the channel blocks concatenate along the channel axis, and every shard
 computes the same new carry (the raw input frames), of which shard 0's is
 kept.
+
+When every shard sits on one place the bank's call runs through
+``utils.graphs``, as ``jax.jit`` runs JAX's: keyed on the input's length,
+one CUDA graph replay a call on a card (a K3 launch a shard inside it),
+Y_re, Y_im and the new carry handed out as tensors of their own.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from tpu_sdr_torch.ops import fused_channelizer as FC
 from tpu_sdr_torch.parallel.mesh import Mesh, replicate
-from tpu_sdr_torch.utils import design
+from tpu_sdr_torch.utils import design, graphs
 
 
 @dataclass(frozen=True)
@@ -31,11 +36,27 @@ class ShardedFusedPfb:
     devices: list[torch.device]
     spec: FC.PfbSpec
     taps: list[torch.Tensor]
+    graphs: graphs.StepGraphs = field(init=False, repr=False,
+                                      compare=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "graphs", graphs.StepGraphs(
+            "ShardedFusedPfb", self._step, self.devices[0]))
 
     def __call__(self, data_u8, carry: torch.Tensor
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """u8 bytes of whole frames and the (2H, K) carry -> (Y_re (m, K),
         Y_im (m, K), new carry) on the first shard's device."""
+        if len(set(self.devices)) > 1:
+            return self._eager(data_u8, carry)
+        if isinstance(data_u8, np.ndarray):
+            data_u8 = np.ascontiguousarray(data_u8, dtype=np.uint8)
+        return tuple(self.graphs.on_device((), [data_u8, carry], [])[0])
+
+    def _step(self, _static, inputs, _carries):
+        return list(self._eager(*inputs)), [], None
+
+    def _eager(self, data_u8, carry):
         home = self.devices[0]
         datas = replicate(self.devices, data_u8)
         carries = replicate(self.devices, carry)

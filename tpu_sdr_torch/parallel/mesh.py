@@ -62,6 +62,14 @@ class Mesh:
         of this process's first shard."""
         return self.devices[self.process_row or 0, 0]
 
+    @property
+    def single_place(self) -> bool:
+        """Every shard on one place, all driven by this process: the
+        sharded functions then run through ``utils.graphs`` (one CUDA
+        graph replay a call on a card, the static-buffer form on the
+        CPU)."""
+        return self.process_row is None and len(set(self.devices.flat)) == 1
+
     def local_rows(self) -> list[int]:
         """The ``dp`` rows this process computes."""
         if self.process_row is None:

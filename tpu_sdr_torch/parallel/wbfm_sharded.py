@@ -17,6 +17,13 @@ becomes "take the last shard's tails".
 Audio emission counts are data-independent closed forms of the global
 shard offset; per-shard outputs are padded to a static maximum as in JAX,
 and ``ShardedWbfm.assemble`` trims them.
+
+On a mesh whose shards all sit on one place (``Mesh.single_place``) the
+chain's ``fn`` runs through ``utils.graphs`` as ``jax.jit`` runs JAX's:
+keyed on the shards' shapes, one CUDA graph replay a call on a card, its
+audio and new carry handed out as tensors of their own; the counts, moved
+by the key alone, are the step's aux.  A mesh over several cards or
+processes runs eagerly.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from tpu_sdr_torch.ops import fused_fm as FF
 from tpu_sdr_torch.parallel import halo as H
 from tpu_sdr_torch.parallel import mesh as mesh_mod
 from tpu_sdr_torch.parallel.mesh import Mesh
+from tpu_sdr_torch.utils import graphs
 from tpu_sdr_torch.utils.design import WbfmConfig
 
 
@@ -103,6 +111,8 @@ class ShardedWbfm:
     mesh: Mesh
     config: WbfmConfig
     fn: Callable
+    # the graphed fn's cache (the float chain on one place), else None
+    graphs: graphs.StepGraphs | None = None
 
     def shard(self, blocks) -> list[list[torch.Tensor | None]]:
         """(stations, n) blocks -> per-shard tensors on their places."""
@@ -312,17 +322,42 @@ def make_sharded_wbfm(mesh: Mesh, config: WbfmConfig | None = None,
                 d_re[:, -1:], d_im[:, -1:], demods[-1][:, -(T - 1):])
         return audio, counts, ends
 
-    def fn(shards, carry: XlaStreamCarry | None = None):
-        if carry_io != (carry is not None):
-            raise ValueError("pass a carry exactly when the chain was built "
-                             "with carry_io=True")
+    def eager(shards, carry: XlaStreamCarry | None = None):
         out = run_rows(mesh, shards, carry, row_fn)
         if carry is None:
             return out
         audio, counts, *ends = out
         return audio, counts, XlaStreamCarry(*ends)
 
-    return ShardedWbfm(mesh=mesh, config=config, fn=fn)
+    dp, sp = mesh.devices.shape
+
+    def step(_static, inputs, carries):
+        """``eager`` on the flattened shards: (the shards' audio, the new
+        carry, the counts)."""
+        rows = [inputs[d * sp:(d + 1) * sp] for d in range(dp)]
+        audio, counts, *ends = eager(rows, XlaStreamCarry(*carries)
+                                     if carries else None)
+        return ([a for row in audio for a in row],
+                list(ends[0]) if ends else [], counts)
+
+    steps = (graphs.StepGraphs("ShardedWbfm", step, mesh.home)
+             if mesh.single_place else None)
+
+    def fn(shards, carry: XlaStreamCarry | None = None):
+        if carry_io != (carry is not None):
+            raise ValueError("pass a carry exactly when the chain was built "
+                             "with carry_io=True")
+        if steps is None:
+            return eager(shards, carry)
+        audio, new, counts = steps.on_device(
+            (), [x for row in shards for x in row],
+            [] if carry is None else list(carry))
+        audio = [audio[d * sp:(d + 1) * sp] for d in range(dp)]
+        if carry is None:
+            return audio, counts
+        return audio, counts, XlaStreamCarry(*new)
+
+    return ShardedWbfm(mesh=mesh, config=config, fn=fn, graphs=steps)
 
 
 def sharded_wbfm_apply(chain: ShardedWbfm, blocks, *carry):

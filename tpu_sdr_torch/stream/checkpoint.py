@@ -21,8 +21,9 @@ joins it on the device; either way the resume is bit-equal.  ``pfb_carry`` — t
 streamer's K3 carry — is captured too: the JAX attribute list lacks it,
 so a JAX checkpoint of that streamer drops the carry.
 
-A graphed streamer (``utils.graphs``) holds the static carry buffers of
-its graphs; a load assigns new tensors, which its next read copies into
+A graphed streamer (``utils.graphs``; since the exact chain and the PSD
+joined them, every streamer) holds the static carry buffers of its
+graphs; a load assigns new tensors, which its next read copies into
 those buffers before the graph replays.  ``FusedWbfmBatchStreamer.phases``
 reads and takes a list (its phases live on the device), so they save as
 one int a station, as before.

@@ -25,18 +25,33 @@ from the key alone (a next phase, an output count).
   buffers, which the streamer then holds as its carries.  A carry assigned
   from outside (a reset, a checkpoint load, a hand-over) is not one of
   them, and is copied into them before the next replay.
-* The outputs are packed into one byte tensor inside the graph and come
-  to the host in one D2H copy into a pinned buffer, followed by one
-  synchronize; the caller gets numpy arrays.  An output lives in the
-  graphs' memory pool only until the next call, so nothing but that copy
-  reads it.
+* A step's outputs leave it in one of three forms, one call method
+  each (a cache serves one form):
+
+  - ``__call__``, host outputs: packed into one byte tensor inside the
+    graph, they come to the host in one D2H copy into a pinned buffer,
+    followed by one synchronize; the caller gets numpy arrays.
+  - :meth:`StepGraphs.advance`, no outputs (``psd_accumulate``'s form,
+    whose state stays on the card until it is read once): a replay is
+    the input copy and the graph launch, with no D2H copy and no
+    synchronize.  The next call's write into the pinned staging buffer
+    waits on an event recorded after the copy out of it, not on the
+    device.
+  - :meth:`StepGraphs.on_device`, device outputs (the sharded functions,
+    whose callers take tensors): each output and each new carry is
+    handed out as a copy of its own, made on the card after the replay,
+    so that a result kept across calls never changes.
+
+  An output of the graph lives in its memory pool only until the next
+  call, so nothing but that copy reads it.
 * The launch counters of the kernels (``fused_fm``, ``fused_channelizer``,
   ``cuda_halo``, ``shard_halo``) gain the captured step's launches at each
   replay; capture itself adds none.
 * A streamer's graphs share one memory pool (``graph_pool_handle``); its
   cache holds the :data:`MAX_KEYS` most recently used keys.  Sharing is
   safe because the graphs of one streamer run one at a time and no output
-  outlives its call.
+  outlives its call.  They share the static carries too, so a cache
+  belongs to one live streamer.
 * :func:`disabled` runs every step eagerly, as ``jax.disable_jit`` does.
   A capture that fails raises :class:`GraphCaptureError`, naming the
   streamer and the key; nothing falls back to eager without being asked.
@@ -171,20 +186,31 @@ def _pack(outputs: Sequence[torch.Tensor], avoid: set[int]
     return torch.cat(flat)
 
 
+def _own(x: torch.Tensor) -> torch.Tensor:
+    """A copy of ``x`` in storage of its own (a view of a wider tensor is
+    copied alone, contiguous)."""
+    return x.clone(memory_format=torch.contiguous_format)
+
+
 @dataclass
 class _Entry:
     """One key's static buffers, its graph and what it needs to replay."""
 
     key: Hashable
+    form: str
     inputs: list[torch.Tensor]
     staging: list[torch.Tensor | None]  # pinned host copies of host inputs
     carries: list[torch.Tensor]
     layout: list[tuple] = field(default_factory=list)  # (np dtype, shape)
     host: torch.Tensor | None = None      # the outputs' bytes on the host
     packed: torch.Tensor | None = None    # the graph's packed outputs
+    outs: list[torch.Tensor] = field(default_factory=list)  # device form
     aux: Any = None
     graph: torch.cuda.CUDAGraph | None = None
     launches: list[dict] = field(default_factory=list)
+    # recorded after the copies out of the staging buffers: the next
+    # write into them waits on it
+    fence: torch.cuda.Event | None = None
 
 
 class StepGraphs:
@@ -207,6 +233,7 @@ class StepGraphs:
         self._carries: list[torch.Tensor] | None = None  # shared statics
         self._pool = None
         self._last: _Entry | None = None
+        self._form: str | None = None
 
     @property
     def keys(self) -> list:
@@ -219,15 +246,49 @@ class StepGraphs:
         or eagerly)."""
         return None if self._last is None else self._last.graph
 
+    def clear(self) -> None:
+        """Drop every key's graph: the next call of each key runs eagerly
+        and captures again.  The static carries stay."""
+        self._entries.clear()
+        self._last = None
+
     def __call__(self, static: Hashable, inputs: Sequence, carries:
                  Sequence[torch.Tensor]
                  ) -> tuple[list[np.ndarray], list[torch.Tensor], Any]:
         """One block: (host outputs, new carries, aux).  ``inputs`` may be
         numpy arrays or tensors; ``carries`` are the streamer's."""
+        return self._call("host", static, inputs, carries)
+
+    def advance(self, static: Hashable, inputs: Sequence,
+                carries: Sequence[torch.Tensor]
+                ) -> tuple[list[torch.Tensor], Any]:
+        """One block of a step without outputs: (new carries, aux).  On the
+        card nothing waits for the device."""
+        _, new, aux = self._call("none", static, inputs, carries)
+        return new, aux
+
+    def on_device(self, static: Hashable, inputs: Sequence,
+                  carries: Sequence[torch.Tensor]
+                  ) -> tuple[list[torch.Tensor], list[torch.Tensor], Any]:
+        """One block: (outputs, new carries, aux), every tensor a copy of
+        its own on the device, which the caller owns."""
+        return self._call("device", static, inputs, carries)
+
+    def _call(self, form: str, static, inputs, carries):
+        if self._form is None:
+            self._form = form
+        elif form != self._form:
+            raise ValueError(f"{self.name}: a cache serves one output form "
+                             f"({self._form}), not also {form}")
         if _disabled:
             outputs, new, aux = self._step()(
                 static, [_as_tensor(x, self.device) for x in inputs],
                 list(carries))
+            if form == "device":
+                return list(outputs), list(new), aux
+            self._check_form(form, outputs)
+            if form == "none":
+                return [], list(new), aux
             packed = _pack(outputs, set())
             return (self._unpack(packed.cpu(), self._layout(outputs)),
                     list(new), aux)
@@ -237,7 +298,7 @@ class StepGraphs:
         with torch.cuda.device(self.device) if cuda else \
                 contextlib.nullcontext():
             if entry is None:
-                return self._first(key, static, inputs, carries)
+                return self._first(key, form, static, inputs, carries)
             self._entries.move_to_end(key)
             self._last = entry
             self._load(entry, inputs, carries)
@@ -250,19 +311,31 @@ class StepGraphs:
             else:
                 packed = self._body(static, entry)
             self.replays += 1
-            return self._to_host(entry, packed), entry.carries, entry.aux
+            return self._results(entry, packed)
 
     # -- the parts of a call ------------------------------------------------
 
-    def _body(self, static, e: _Entry) -> torch.Tensor:
-        """The step on the entry's static buffers: the packed outputs, the
-        new carries written into the static carries."""
+    def _check_form(self, form: str, outputs) -> None:
+        if form == "none" and len(outputs):
+            raise ValueError(f"{self.name}: a step without outputs returned "
+                             f"{len(outputs)}")
+
+    def _body(self, static, e: _Entry) -> torch.Tensor | None:
+        """The step on the entry's static buffers: the packed outputs (host
+        form), the new carries written into the static carries."""
         outputs, new, aux = self._step()(static, e.inputs, e.carries)
         if len(new) != len(e.carries):
             raise ValueError(f"{self.name}: the step returned {len(new)} "
                              f"carries for {len(e.carries)}")
+        self._check_form(e.form, outputs)
         avoid = {t.untyped_storage().data_ptr() for t in e.carries + e.inputs}
-        packed = _pack(outputs, avoid)
+        packed = None
+        if e.form == "host":
+            packed = _pack(outputs, avoid)
+        elif e.form == "device":
+            # an output in a static buffer would change under it
+            e.outs = [_own(o) if o.untyped_storage().data_ptr() in avoid
+                      else o for o in outputs]
         # a new carry that lies in another static carry is read before
         # that one is rewritten
         held = {t.untyped_storage().data_ptr() for t in e.carries}
@@ -291,34 +364,49 @@ class StepGraphs:
             at += n
         return out
 
-    def _to_host(self, e: _Entry, packed: torch.Tensor) -> list[np.ndarray]:
+    def _results(self, e: _Entry, packed: torch.Tensor | None):
+        """A call's (outputs, carries, aux) in the entry's form."""
+        if e.form == "none":
+            return [], e.carries, e.aux
+        if e.form == "device":
+            return ([_own(o) for o in e.outs], [_own(c) for c in e.carries],
+                    e.aux)
         if self.device.type == "cuda":
             e.host.copy_(packed, non_blocking=True)
             torch.cuda.current_stream(self.device).synchronize()
-            return self._unpack(e.host, e.layout)
-        return self._unpack(packed, e.layout)
+            return self._unpack(e.host, e.layout), e.carries, e.aux
+        return self._unpack(packed, e.layout), e.carries, e.aux
 
     def _load(self, e: _Entry, inputs, carries) -> None:
         """The block into the static inputs; carries assigned from outside
         into the static carries."""
+        staged = False
         for static, stage, x in zip(e.inputs, e.staging, inputs):
             if x is static:
                 continue
-            if isinstance(x, np.ndarray):
-                if stage is None:
-                    np.copyto(static.numpy(), x)
-                    continue
-                np.copyto(stage.numpy(), x)
-                x = stage
-            elif stage is not None and x.device.type == "cpu":
-                stage.copy_(x)
+            host = isinstance(x, np.ndarray)
+            if host and stage is None:  # the CPU's static buffer
+                np.copyto(static.numpy(), x)
+                continue
+            if stage is not None and (host or x.device.type == "cpu"):
+                if not staged and e.fence is not None:
+                    e.fence.synchronize()  # the last copy out of it is done
+                staged = True
+                if host:
+                    np.copyto(stage.numpy(), x)
+                else:
+                    stage.copy_(x)
                 x = stage
             static.copy_(x, non_blocking=True)
+        if staged:
+            if e.fence is None:
+                e.fence = torch.cuda.Event()
+            e.fence.record(torch.cuda.current_stream(self.device))
         for static, c in zip(e.carries, carries):
             if c is not static:
                 static.copy_(c)
 
-    def _new_entry(self, key, inputs, carries) -> _Entry:
+    def _new_entry(self, key, form, inputs, carries) -> _Entry:
         dev = self.device
         cuda = dev.type == "cuda"
         statics = [torch.empty(tuple(x.shape), dtype=_torch_dtype(x),
@@ -332,18 +420,18 @@ class StepGraphs:
         if self._carries is None or _signature(self._carries) != sig \
                 or any(c.device != dev for c in self._carries):
             self._carries = [torch.empty_like(c, device=dev) for c in carries]
-        e = _Entry(key, statics, staging, self._carries)
+        e = _Entry(key, form, statics, staging, self._carries)
         self._load(e, inputs, carries)
         return e
 
-    def _first(self, key, static, inputs, carries):
+    def _first(self, key, form, static, inputs, carries):
         """A new key: the eager step on fresh static buffers, then (on the
         card) its capture over the same buffers."""
-        e = self._new_entry(key, inputs, carries)
+        e = self._new_entry(key, form, inputs, carries)
         if self.device.type != "cuda":
-            outputs = self._to_host(e, self._body(static, e))
+            results = self._results(e, self._body(static, e))
             self._keep(e)
-            return outputs, e.carries, e.aux
+            return results
         cur = torch.cuda.current_stream(self.device)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
@@ -351,12 +439,24 @@ class StepGraphs:
         side.wait_stream(cur)
         with torch.cuda.stream(side):
             packed = self._body(static, e)
-            nbytes = packed.numel()
-            e.host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
-            e.host.copy_(packed, non_blocking=True)
+            if form == "host":
+                nbytes = packed.numel()
+                e.host = torch.empty(nbytes, dtype=torch.uint8,
+                                     pin_memory=True)
+                e.host.copy_(packed, non_blocking=True)
+            elif form == "device":
+                results = self._results(e, None)
+                # the caller's stream uses them from here
+                for t in results[0] + results[1]:
+                    t.record_stream(cur)
         side.synchronize()
-        outputs = self._unpack(e.host, e.layout)
+        if form == "host":
+            results = self._unpack(e.host, e.layout), e.carries, e.aux
+        elif form == "none":
+            results = [], e.carries, e.aux
+        n_out = len(e.layout)
         del packed
+        e.outs = []
         # the eager call has moved the carries on: capture the step that
         # takes them from here
         counters = _counters()
@@ -394,14 +494,14 @@ class StepGraphs:
             raise GraphCaptureError(
                 f"{self.name}: capturing the step for key {key!r} failed: "
                 f"{failure}") from failure
-        if e.packed.numel() != nbytes:
+        if form == "host" and e.packed.numel() != nbytes or \
+                len(e.layout) != n_out:
             raise GraphCaptureError(f"{self.name}: key {key!r} captured "
-                                    f"{e.packed.numel()} output bytes, the "
-                                    f"eager step gave {nbytes}")
+                                    f"other outputs than the eager step gave")
         cur.wait_stream(side)
         e.graph = graph
         self._keep(e)
-        return outputs, e.carries, e.aux
+        return results
 
     def _keep(self, e: _Entry) -> None:
         self._entries[e.key] = e
