@@ -1016,6 +1016,62 @@ def test_trace_on_the_card_names_the_kernels(capture, dev, tmp_path):
     names = " ".join(e.get("name", "") for e in json.loads(
         trace.read_text())["traceEvents"])
     assert "fm_front" in names and "fm_resample" in names
+    # the program's spans on their own track, on the same time axis: each
+    # replay span holds its graph launch, each sync span its wait
+    events = [e for e in json.loads(trace.read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    spans = [e for e in events if e.get("cat") == "program_span"]
+    calls = [e for e in events if e.get("cat") == "cuda_runtime"]
+    for part, call in (("replay", "cudaGraphLaunch"),
+                       ("sync", "cudaStreamSynchronize")):
+        mine = [e for e in spans if e["name"] == f"FusedWbfmStreamer.{part}"]
+        assert mine
+        for s in mine:
+            assert any(c["name"] == call and s["ts"] <= c["ts"]
+                       <= s["ts"] + s["dur"] for c in calls), (part, s)
+
+
+def test_card_timeline_holds_each_steps_host_calls(wideband_capture, dev):
+    """Under the card's profiler the spans go to the timeline, on its host
+    clock: every graph launch of the reads lies in a replay span, one
+    each, and every synchronize in a sync span; the totals stay empty."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_sdr_torch.models import rds as R
+    from tpu_sdr_torch.utils import profiling
+
+    config = WB.WidebandConfig(channels=(3, 60), emit_mpx=True)
+    streamer = WB.WidebandStreamer(config, use_fused=True, device=dev)
+    decoders = [R.RdsStreamDecoder(device=dev) for _ in config.channels]
+    read = 87_040
+
+    def reads():
+        for at in range(0, len(wideband_capture), read):
+            streamer.demodulate(wideband_capture[at:at + read])
+            for s, dec in enumerate(decoders):
+                dec.feed_mpx(streamer.last_mpx[s])
+
+    reads()  # capture every key
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        reads()
+    assert profiling.totals() == {"spans": {}, "counters": {}}
+    tl = profiling.timeline()
+    host = [e for e in prof.profiler.kineto_results.events()
+            if e.device_type() != DeviceType.CUDA]
+    for part, call in (("replay", "cudaGraphLaunch"),
+                       ("sync", "cudaStreamSynchronize")):
+        mine = [s for s in tl if s.name.endswith(f".{part}")]
+        stamps = [e.start_ns() for e in host if e.name() == call]
+        assert len(mine) == 3 * len(wideband_capture) // read
+        assert len(stamps) == len(mine), part
+        for t in stamps:
+            assert sum(s.start_ns <= t <= s.end_ns for s in mine) == 1, part
+    for s in tl:
+        if s.name == R.FEED_SPAN:
+            assert s.read is not None and s.station in (0, 1)
 
 
 # ---- the feeder's pinned double buffer and the port's rtl_tcp server -------

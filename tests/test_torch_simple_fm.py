@@ -268,8 +268,13 @@ def test_cli_stereo_rds_matches_the_jax_cli(tmp_path, capsysbinary):
 
 def test_cli_trace_writes_a_chrome_trace(capture_file, tmp_path, capsysbinary):
     """``--trace DIR``: one ``torch.profiler`` Chrome trace in DIR naming
-    the run's operations (on the card, also the kernels)."""
+    the run's operations (on the card, also the kernels), with the
+    program's spans on a track of their own, on the operations' time
+    axis: each graph replay's span (on the CPU the step itself) holds the
+    aten operations it launched."""
     import json
+
+    from tpu_sdr_torch.utils import profiling
 
     out = tmp_path / "trace"
     pcm = _run(["--file", capture_file, "--mode", "fused", "--torch-device",
@@ -277,6 +282,18 @@ def test_cli_trace_writes_a_chrome_trace(capture_file, tmp_path, capsysbinary):
     assert len(pcm) > 0
     files = list(out.glob("*.pt.trace.json"))
     assert len(files) == 1
-    names = {e.get("name", "") for e in json.loads(files[0].read_text())[
-        "traceEvents"]}
+    events = json.loads(files[0].read_text())["traceEvents"]
+    names = {e.get("name", "") for e in events}
     assert any(n.startswith("aten::") for n in names)
+    track = [e for e in events if e.get("args", {}).get("name")
+             == profiling.TRACK]
+    assert len(track) == 1
+    spans = [e for e in events if e.get("cat") == "program_span"]
+    assert {e["tid"] for e in spans} == {track[0]["tid"]}
+    replays = [e for e in spans if e["name"] == "FusedWbfmStreamer.replay"]
+    assert replays and {"FusedWbfmStreamer.capture",
+                        "FusedWbfmStreamer.unpack"} <= {e["name"] for e in spans}
+    aten = [e["ts"] for e in events if e.get("cat") == "cpu_op"
+            and e["name"].startswith("aten::")]
+    for r in replays:
+        assert any(r["ts"] <= t <= r["ts"] + r["dur"] for t in aten), r

@@ -21,9 +21,11 @@ decoder and RDS (``models.wbfm_stereo``, ``models.rds``; ``simple_fm
 --mode stereo --rds``, ``multi_fm --rds``); the AM/NBFM/SSB receiver
 (``models.multimode``, ``apps.rtl_fm``); the spectrum scanner
 (``ops.spectrum``, ``apps.rtl_power``); checkpoint/resume
-(``stream.checkpoint``) and traces (``utils.profiling.trace``); the
-streaming runtime (the native ring and pump, the feeder's pinned double
-buffer ``BlockFeeder.device_blocks``) and the host CLIs ``rtl_tcp``,
+(``stream.checkpoint``); the read path's spans and counters, kept as
+totals and, under a profiler, as a timeline (``utils.profiling``), and
+traces with that timeline as a track of their own
+(``utils.profiling.trace``); the streaming runtime (the native ring and
+pump, the feeder's pinned double buffer ``BlockFeeder.device_blocks``) and the host CLIs ``rtl_tcp``,
 ``rtl_test``, ``rtl_sdr_capture``, ``rtl_eeprom``, ``device_list`` and
 ``demo_device_id``.
 """

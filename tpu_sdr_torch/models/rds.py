@@ -34,11 +34,17 @@ import torch
 from torch import nn
 
 from tpu_sdr_torch.ops import fm as F
-from tpu_sdr_torch.utils import design, firdes, graphs
+from tpu_sdr_torch.utils import design, firdes, graphs, profiling
 
 RDS_RATE = 1187.5
 RESAMPLE_FS = 152_000          # 128 samples per data bit, 64 per half-symbol
 SAMPLES_PER_BIT = 128
+
+# the spans of a decoder's share of a read (utils.profiling)
+JOIN_SPAN = "RdsReceiver.join"          # the multiplex join
+FEED_SPAN = "RdsStreamDecoder.feed"     # the root
+BITS_SPAN = "RdsStreamDecoder.bits"     # baseband join, lock, bits
+GROUPS_SPAN = "RdsStreamDecoder.groups"  # group sync and text
 
 
 @dataclass(frozen=True)
@@ -190,7 +196,9 @@ class RdsReceiver:
 
     def process(self, mpx: np.ndarray) -> np.ndarray:
         """Multiplex samples in -> 152 kHz RDS baseband out (stream-safe)."""
+        t0 = profiling.clock()
         data = np.concatenate([self._pending, np.asarray(mpx, np.float32)])
+        profiling.span(JOIN_SPAN, t0, profiling.clock(), data.nbytes)
         down = self.config.resample_down
         usable = len(data) - (len(data) % down)
         self._pending = data[usable:]
@@ -635,19 +643,39 @@ class RdsStreamDecoder:
 
     def feed_mpx(self, mpx: np.ndarray) -> list[str]:
         """FM multiplex samples (discriminator output) in -> text events."""
-        self._bb = np.concatenate([self._bb, self.rx.process(mpx)])
+        t0 = profiling.clock()
+        b152 = self.rx.process(mpx)
+        t1 = profiling.clock()
+        bits, joined = self._bits(b152)
+        t2 = profiling.clock()
+        events: list[str] = []
+        if bits is not None:
+            for group in self.sync.feed(bits):
+                events.extend(self.text.update(group))
+        t3 = profiling.clock()
+        profiling.span(BITS_SPAN, t1, t2, joined)
+        profiling.span(GROUPS_SPAN, t2, t3)
+        profiling.fed_span(FEED_SPAN, t0, t3, mpx)
+        return events
+
+    def _bits(self, b152: np.ndarray) -> tuple[np.ndarray | None, int]:
+        """The baseband joined to what awaits lock or frames, then the lock,
+        integrate-and-dump and the differential decode: (the new bits,
+        ``None`` while there are none to sync; the bytes joined)."""
+        self._bb = np.concatenate([self._bb, b152])
+        joined = self._bb.nbytes
         if not self.locked:
             if self.rx.pilot_amp < self.pilot_threshold:
                 # no pilot, no carrier: drop stale baseband, stay unlocked
                 self._bb = self._bb[-SAMPLES_PER_BIT:]
-                return []
+                return None, joined
             if len(self._bb) < self.lock_bits * SAMPLES_PER_BIT:
-                return []
+                return None, joined
             self.phase = best_bit_phase(self._bb)
             self._bb = self._bb[self.phase:]
         nbits = len(self._bb) // SAMPLES_PER_BIT
         if nbits == 0:
-            return []
+            return None, joined
         frames = self._bb[: nbits * SAMPLES_PER_BIT].reshape(
             nbits, SAMPLES_PER_BIT)
         self._bb = self._bb[nbits * SAMPLES_PER_BIT:]
@@ -660,10 +688,7 @@ class RdsStreamDecoder:
             bits = np.concatenate([[raw[0] ^ self._prev_raw],
                                    raw[1:] ^ raw[:-1]]).astype(np.uint8)
         self._prev_raw = int(raw[-1])
-        events: list[str] = []
-        for group in self.sync.feed(bits):
-            events.extend(self.text.update(group))
-        return events
+        return bits, joined
 
 
 def make_group_0a(pi: int, pty: int, segment: int, ps_pair: str,

@@ -30,7 +30,10 @@ from torch import nn
 from tpu_sdr_torch.ops import channelizer as chan
 from tpu_sdr_torch.ops import fm as F
 from tpu_sdr_torch.ops import fused_channelizer as FC
-from tpu_sdr_torch.utils import design, graphs
+from tpu_sdr_torch.utils import design, graphs, profiling
+
+READ_SPAN = "WidebandStreamer.demodulate"  # the root span of a read
+JOIN_SPAN = "WidebandStreamer.join"        # the residual join
 
 
 @dataclass(frozen=True)
@@ -218,7 +221,14 @@ class WidebandStreamer:
             None
 
     def demodulate(self, buf: np.ndarray) -> np.ndarray:
+        t0 = profiling.clock()
         data = np.concatenate([self._pending, np.asarray(buf, np.uint8)])
+        profiling.span(JOIN_SPAN, t0, profiling.clock(), data.nbytes)
+        audio = self._demodulate(data)
+        profiling.read_span(READ_SPAN, t0, profiling.clock(), self.last_mpx)
+        return audio
+
+    def _demodulate(self, data: np.ndarray) -> np.ndarray:
         usable = len(data) - (len(data) % self._quantum)
         self._pending = data[usable:]
         n_st = len(self.config.channels)

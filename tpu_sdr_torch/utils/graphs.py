@@ -52,7 +52,18 @@ from the key alone (a next phase, an output count).
   safe because the graphs of one streamer run one at a time and no output
   outlives its call.  They share the static carries too, so a cache
   belongs to one live streamer.
-* :func:`disabled` runs every step eagerly, as ``jax.disable_jit`` does.
+* Each call records its parts as spans of ``utils.profiling``, named
+  after the cache, back to back from the call's start:
+  ``<name>.stage`` (the key and its lookup, the switch to the device, the
+  wait on the staging buffer's fence, the copy into it, the non-blocking
+  H2D enqueue, carries copied in), ``<name>.replay`` (the host's launch of
+  the graph and its launch counts; on the CPU the step itself), and in the
+  host form ``<name>.sync`` (the D2H enqueue and the host's wait on the
+  device) and ``<name>.unpack`` (the outputs' host copies).  A new key's
+  eager run and capture is ``<name>.capture`` alone.  The inputs copied on
+  the host and the outputs unpacked count into ``profiling.COPIED``.
+* :func:`disabled` runs every step eagerly, as ``jax.disable_jit`` does,
+  and records no spans.
   A capture that fails raises :class:`GraphCaptureError`, naming the
   streamer and the key; nothing falls back to eager without being asked.
 
@@ -72,6 +83,8 @@ from typing import Any, Callable, Hashable, Sequence
 
 import numpy as np
 import torch
+
+from tpu_sdr_torch.utils import profiling
 
 MAX_KEYS = 8  # the graphs a streamer keeps, most recently used first
 
@@ -202,6 +215,7 @@ class _Entry:
     staging: list[torch.Tensor | None]  # pinned host copies of host inputs
     carries: list[torch.Tensor]
     layout: list[tuple] = field(default_factory=list)  # (np dtype, shape)
+    unpacked: int = 0                     # the outputs' bytes
     host: torch.Tensor | None = None      # the outputs' bytes on the host
     packed: torch.Tensor | None = None    # the graph's packed outputs
     outs: list[torch.Tensor] = field(default_factory=list)  # device form
@@ -234,6 +248,8 @@ class StepGraphs:
         self._pool = None
         self._last: _Entry | None = None
         self._form: str | None = None
+        self._names = tuple(f"{name}.{part}" for part in
+                            ("stage", "replay", "sync", "unpack", "capture"))
 
     @property
     def keys(self) -> list:
@@ -292,16 +308,21 @@ class StepGraphs:
             packed = _pack(outputs, set())
             return (self._unpack(packed.cpu(), self._layout(outputs)),
                     list(new), aux)
+        t0 = profiling.clock()
         key = (static, _signature(inputs), _signature(carries))
         entry = self._entries.get(key)
         cuda = self.device.type == "cuda"
         with torch.cuda.device(self.device) if cuda else \
                 contextlib.nullcontext():
             if entry is None:
-                return self._first(key, form, static, inputs, carries)
+                results, copied = self._first(key, form, static, inputs,
+                                              carries)
+                profiling.span(self._names[4], t0, profiling.clock(), copied)
+                return results
             self._entries.move_to_end(key)
             self._last = entry
-            self._load(entry, inputs, carries)
+            staged = self._load(entry, inputs, carries)
+            t1 = profiling.clock()
             if cuda:
                 entry.graph.replay()
                 for counter, step in zip(_counters(), entry.launches):
@@ -311,7 +332,17 @@ class StepGraphs:
             else:
                 packed = self._body(static, entry)
             self.replays += 1
-            return self._results(entry, packed)
+            t2 = profiling.clock()
+            if entry.form != "host":
+                profiling.span(self._names[0], t0, t1, staged)
+                profiling.span(self._names[1], t1, t2)
+                return self._results(entry, packed)
+            host = self._fetch(entry, packed)
+            t3 = profiling.clock()
+            outputs = self._unpack(host, entry.layout)
+            profiling.step_spans(self._names, t0, t1, t2, t3,
+                                 profiling.clock(), staged, entry.unpacked)
+            return outputs, entry.carries, entry.aux
 
     # -- the parts of a call ------------------------------------------------
 
@@ -345,6 +376,8 @@ class StepGraphs:
             if c is not s:
                 s.copy_(c)
         e.layout = self._layout(outputs)
+        e.unpacked = sum(int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+                         for dtype, shape in e.layout)
         e.aux = aux
         return packed
 
@@ -371,22 +404,32 @@ class StepGraphs:
         if e.form == "device":
             return ([_own(o) for o in e.outs], [_own(c) for c in e.carries],
                     e.aux)
-        if self.device.type == "cuda":
-            e.host.copy_(packed, non_blocking=True)
-            torch.cuda.current_stream(self.device).synchronize()
-            return self._unpack(e.host, e.layout), e.carries, e.aux
-        return self._unpack(packed, e.layout), e.carries, e.aux
+        return self._unpack(self._fetch(e, packed), e.layout), e.carries, \
+            e.aux
 
-    def _load(self, e: _Entry, inputs, carries) -> None:
+    def _fetch(self, e: _Entry, packed: torch.Tensor) -> torch.Tensor:
+        """The host form's packed outputs on the host: on the card, one
+        D2H copy into the pinned buffer and the wait for it."""
+        if self.device.type != "cuda":
+            return packed
+        e.host.copy_(packed, non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        return e.host
+
+    def _load(self, e: _Entry, inputs, carries) -> int:
         """The block into the static inputs; carries assigned from outside
-        into the static carries."""
+        into the static carries.  Returns the bytes copied on the host (an
+        input into its staging buffer, or on the CPU into its static
+        buffer)."""
         staged = False
+        copied = 0
         for static, stage, x in zip(e.inputs, e.staging, inputs):
             if x is static:
                 continue
             host = isinstance(x, np.ndarray)
             if host and stage is None:  # the CPU's static buffer
                 np.copyto(static.numpy(), x)
+                copied += x.nbytes
                 continue
             if stage is not None and (host or x.device.type == "cpu"):
                 if not staged and e.fence is not None:
@@ -396,7 +439,10 @@ class StepGraphs:
                     np.copyto(stage.numpy(), x)
                 else:
                     stage.copy_(x)
+                copied += stage.nbytes
                 x = stage
+            elif x.device.type == "cpu" and static.device.type == "cpu":
+                copied += static.nbytes
             static.copy_(x, non_blocking=True)
         if staged:
             if e.fence is None:
@@ -405,6 +451,7 @@ class StepGraphs:
         for static, c in zip(e.carries, carries):
             if c is not static:
                 static.copy_(c)
+        return copied
 
     def _new_entry(self, key, form, inputs, carries) -> _Entry:
         dev = self.device
@@ -421,17 +468,17 @@ class StepGraphs:
                 or any(c.device != dev for c in self._carries):
             self._carries = [torch.empty_like(c, device=dev) for c in carries]
         e = _Entry(key, form, statics, staging, self._carries)
-        self._load(e, inputs, carries)
-        return e
+        return e, self._load(e, inputs, carries)
 
     def _first(self, key, form, static, inputs, carries):
         """A new key: the eager step on fresh static buffers, then (on the
-        card) its capture over the same buffers."""
-        e = self._new_entry(key, form, inputs, carries)
+        card) its capture over the same buffers.  Returns the results and
+        the bytes copied on the host."""
+        e, copied = self._new_entry(key, form, inputs, carries)
         if self.device.type != "cuda":
             results = self._results(e, self._body(static, e))
             self._keep(e)
-            return results
+            return results, copied + (e.unpacked if form == "host" else 0)
         cur = torch.cuda.current_stream(self.device)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
@@ -501,7 +548,7 @@ class StepGraphs:
         cur.wait_stream(side)
         e.graph = graph
         self._keep(e)
-        return results
+        return results, copied + (e.unpacked if form == "host" else 0)
 
     def _keep(self, e: _Entry) -> None:
         self._entries[e.key] = e
