@@ -1337,6 +1337,49 @@ def test_graphed_streamer_equals_disabled(dev, name):
     assert peak < 2 << 30, f"{name}: peak {peak / 2**20:.1f} MiB"
 
 
+@pytest.mark.parametrize("residual", [0, 1000])
+def test_graphed_wideband_reads_in_pieces_equal_disabled(wideband_capture,
+                                                         dev, residual):
+    """``WidebandStreamer(use_fused=True)`` under graphs, its residual and
+    each read's whole chunks written as two pieces into the staging
+    buffer, reads handed in one reused read-only buffer as ``multi_fm``'s
+    ``np.frombuffer`` hands them: the same bits as the same reads under
+    ``graphs.disabled()``, one graph a usable length, one K3 launch a
+    read."""
+    from tpu_sdr_torch.utils import graphs
+
+    config = WB.WidebandConfig(channels=(3, 60), emit_mpx=True)
+    quantum = WB.fused_spec(config).chunk_bytes
+    reads = [(1 + k % 2) * quantum + residual for k in range(5)]
+    scratch = bytearray(max(reads))
+
+    def run(streamer):
+        out, at = [], 0
+        for n in reads:
+            scratch[:n] = wideband_capture[at:at + n].tobytes()
+            at += n
+            buf = np.frombuffer(memoryview(scratch)[:n].toreadonly(),
+                                np.uint8)
+            out.append((streamer.demodulate(buf), streamer.last_mpx))
+            del buf
+        return out
+
+    assert sum(reads) <= len(wideband_capture)
+    with graphs.disabled():
+        exp = run(WB.WidebandStreamer(config, use_fused=True, device=dev))
+    s = WB.WidebandStreamer(config, use_fused=True, device=dev)
+    FC.reset_launch_counts()
+    got = run(s)
+    assert FC.LAUNCHES["pfb_channelize"] == len(reads)
+    for i, (e, g) in enumerate(zip(exp, got)):
+        for x, y in zip(e, g):
+            assert x.shape == y.shape and np.array_equal(x, y), (residual, i)
+    # the usable parts are one and two chunks, whatever the residual
+    assert len(s.graphs.keys) == s.graphs.captures == 2
+    assert s.graphs.replays == len(reads) - s.graphs.captures > 0
+    assert s.graphs.graph is not None
+
+
 def test_graph_capture_failure_names_the_streamer(dev):
     """A step that syncs with the host cannot be captured: the error names
     the streamer and the key, and nothing runs eagerly in its place."""

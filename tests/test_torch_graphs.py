@@ -826,6 +826,122 @@ def test_state_split_and_join_round_trip():
     assert type(back) is TS.StereoState and back == state
 
 
+def _rows_step(static, inputs, carries):
+    """``_toy_step`` over the last axis of rows."""
+    x, = inputs
+    acc, = carries
+    y = x * static + acc
+    return [y, y.sum()], [y[..., -1:].clone()], static + 1
+
+
+@pytest.mark.parametrize("shape", [(12,), (2, 12)])
+def test_helper_takes_an_input_in_pieces(shape):
+    """A host input given as pieces (a residual and the head of a read)
+    gives the outputs, carries and aux of one given their concatenation
+    along the last axis, under the same single key, whatever the split;
+    ``graphs.disabled()`` joins them."""
+    x = np.arange(np.prod(shape), dtype=np.float32).reshape(shape)
+    whole = graphs.StepGraphs("toy", _rows_step, CPU)
+    split = graphs.StepGraphs("toy", _rows_step, CPU)
+    acc_w = acc_s = torch.zeros(shape[:-1] + (1,))
+    for cut in (0, 1, 5, 11, 12):
+        (y, total), (acc_w,), aux = whole(2, [x], [acc_w])
+        pieces = (x[..., :cut], x[..., cut:])
+        (y2, total2), (acc_s,), aux2 = split(2, [pieces], [acc_s])
+        assert np.array_equal(y, y2) and total == total2 and aux == aux2
+        assert torch.equal(acc_w, acc_s), cut
+        with graphs.disabled():
+            (y3, _), _, _ = graphs.StepGraphs("toy", _rows_step, CPU)(
+                2, [pieces], [torch.zeros(shape[:-1] + (1,))])
+        (y4, _), _, _ = graphs.StepGraphs("toy", _rows_step, CPU)(
+            2, [x], [torch.zeros(shape[:-1] + (1,))])
+        assert np.array_equal(y3, y4), cut
+    assert split.keys == whole.keys and len(split.keys) == 1
+    assert (split.captures, split.replays) == (1, 4)
+
+
+def test_split_residual_keeps_an_owned_tail():
+    buf = np.frombuffer(bytes(range(250)), np.uint8)  # read-only
+    pending = np.arange(7, dtype=np.uint8)
+    pieces, rest, copied = graphs.split_residual(pending, buf, 16)
+    assert pieces[0] is pending and np.shares_memory(pieces[1], buf)
+    assert np.array_equal(np.concatenate(pieces), np.concatenate(
+        [pending, buf])[:256])
+    assert np.array_equal(rest, buf[249:]) and copied == 1
+    assert rest.flags.owndata and rest.flags.writeable
+    # a read under one quantum with the residual: one small join
+    pieces, rest, copied = graphs.split_residual(rest, buf[:10], 16)
+    assert pieces == () and copied == rest.nbytes == 11
+    pieces, rest, copied = graphs.split_residual(rest, buf[:5], 16)
+    assert len(pieces) == 2 and np.array_equal(np.concatenate(pieces), (
+        np.concatenate([buf[249:], buf[:10], buf[:5]])))
+    assert rest.shape == (0,) and copied == 0
+
+
+def _wideband_stream(fused: bool):
+    config = WB.WidebandConfig(emit_mpx=True, **WB_CONFIG)
+    u8, _ = synth.synth_multistation_u8(
+        200_000, 64 * 170_000, station_freqs=[3 * 170_000, -4 * 170_000],
+        audio_freqs=[1_000.0, 2_500.0], deviation=45_000.0)
+
+    def make():
+        return WB.WidebandStreamer(config, use_fused=fused, device=CPU)
+
+    def feed(s, b):
+        return s.demodulate(b), s.last_mpx
+
+    quantum = WB.fused_spec(config).chunk_bytes if fused else 2 * 64 * 85
+    return make, np.asarray(u8, np.uint8), quantum, np.uint8, feed
+
+
+def _rds_stream(fused=None):
+    def feed(s, b):
+        return s.process(b), np.float32(s.pilot_amp)
+
+    return (lambda: TR.RdsReceiver(device=CPU), _mpx(40_000), 85,
+            np.float32, feed)
+
+
+@pytest.mark.parametrize("residual", [0, 1000, "quantum-1", "short"])
+@pytest.mark.parametrize("name", ["wideband_fused", "wideband_plain", "rds"])
+def test_residual_pieces_equal_the_blocks_joined(name, residual):
+    """Reads that leave a residual of 0, 1,000 or one quantum less one
+    sample, or are under a quantum, fed from one reused read-only buffer:
+    the outputs bit-equal to a second streamer fed, call for call, the
+    usable blocks joined here, and the same graph keys, which follow the
+    usable lengths and not how the residual and the read split them."""
+    make, data, quantum, dtype, feed = (
+        _rds_stream() if name == "rds" else
+        _wideband_stream(name == "wideband_fused"))
+    extra = {"quantum-1": quantum - 1, "short": 0}.get(residual, residual)
+    reads = [quantum // 3] * 7 if residual == "short" else \
+        [(1 + k % 2) * quantum + extra for k in range(6)]
+    s, ref = make(), make()
+    scratch = bytearray(max(reads) * np.dtype(dtype).itemsize)
+    pending = np.zeros(0, dtype)
+    at, with_output = 0, 0
+    for n in reads:
+        chunk = data[at:at + n]
+        at += n
+        nbytes = chunk.nbytes
+        scratch[:nbytes] = chunk.tobytes()  # the caller reuses its buffer
+        view = memoryview(scratch)[:nbytes].toreadonly()
+        got = feed(s, np.frombuffer(view, dtype))
+        del view
+        joined = np.concatenate([pending, chunk])
+        usable = len(joined) - len(joined) % quantum
+        pending = joined[usable:]
+        exp = feed(ref, joined[:usable])
+        for x, y in zip(exp, got):
+            assert x.dtype == y.dtype and np.array_equal(x, y), n
+        with_output += usable > 0
+        assert np.array_equal(s._pending, pending)
+    assert with_output >= 2
+    assert s.graphs.keys == ref.graphs.keys
+    assert (s.graphs.captures, s.graphs.replays) == \
+        (ref.graphs.captures, ref.graphs.replays)
+
+
 def test_soak_wbfm_streamer_2000_blocks():
     """The port's twin of ``tests/test_soak.py``'s float-chain soak: 2,000
     blocks of 5,100 bytes (the residual path cycles, the key changes)

@@ -7,8 +7,8 @@ Without a profiler the spans go to the totals; under one, to the
 timeline alone, stamped on the profiler's clock: the aten operations a
 step launches lie inside its spans, and an RDS decoder's spans carry the
 read whose multiplex they consumed.  The counts are the reads', the
-bytes copied on the host the sizes of what was joined, staged and
-unpacked, and the outputs the same with the timeline on and off."""
+bytes copied on the host the sizes of the residuals kept, what was
+staged and unpacked, and the outputs the same with the timeline on and off."""
 
 import numpy as np
 import pytest
@@ -139,25 +139,29 @@ def test_replay_spans_count_the_replays(kind):
         assert got == (g.replays if part in parts else 0), part
 
 
-@pytest.mark.parametrize("residual", [0, 1000])
+@pytest.mark.parametrize("residual", [0, 1000, QUANTUM - 1, "short"])
 def test_host_copy_bytes_are_the_joins_the_staging_and_the_unpack(
         capture, residual):
-    """Without decoders: each read's join (the residual and the read),
-    its staging copy (the whole chunks) and its outputs unpacked (the
-    audio and the multiplex)."""
+    """Without decoders: each read's new residual (its tail under one
+    quantum, copied once), its staging copy (the residual and the read's
+    whole chunks, written once into the static input) and its outputs
+    unpacked (the audio and the multiplex).  A read that leaves no whole
+    chunk with the residual is joined to it instead ("short": a third of
+    a chunk a read)."""
     profiling.reset()
-    read = READ + residual
+    read = QUANTUM // 3 if residual == "short" else READ + residual
     streamer = WB.WidebandStreamer(CONFIG, use_fused=True, device="cpu")
-    want, pending = 0, 0
+    want, pending, outputs = 0, 0, 0
     for at in range(0, 8 * read, read):
         audio = streamer.demodulate(capture[at:at + read])
-        joined = pending + read
-        usable = joined - joined % QUANTUM
-        pending = joined - usable
-        want += joined
+        total = pending + read
+        usable = total - total % QUANTUM
+        want += total if usable == 0 else total - usable
+        pending = total - usable
         if usable:
             want += usable + audio.nbytes + streamer.last_mpx.nbytes
-    assert want > 8 * READ * 2
+            outputs += 1
+    assert outputs >= 2 and len(streamer._pending) == pending
     assert profiling.totals()["counters"] == {profiling.COPIED: want}
 
 

@@ -41,7 +41,7 @@ RESAMPLE_FS = 152_000          # 128 samples per data bit, 64 per half-symbol
 SAMPLES_PER_BIT = 128
 
 # the spans of a decoder's share of a read (utils.profiling)
-JOIN_SPAN = "RdsReceiver.join"          # the multiplex join
+JOIN_SPAN = "RdsReceiver.join"          # the multiplex residual's bookkeeping
 FEED_SPAN = "RdsStreamDecoder.feed"     # the root
 BITS_SPAN = "RdsStreamDecoder.bits"     # baseband join, lock, bits
 GROUPS_SPAN = "RdsStreamDecoder.groups"  # group sync and text
@@ -197,15 +197,14 @@ class RdsReceiver:
     def process(self, mpx: np.ndarray) -> np.ndarray:
         """Multiplex samples in -> 152 kHz RDS baseband out (stream-safe)."""
         t0 = profiling.clock()
-        data = np.concatenate([self._pending, np.asarray(mpx, np.float32)])
-        profiling.span(JOIN_SPAN, t0, profiling.clock(), data.nbytes)
-        down = self.config.resample_down
-        usable = len(data) - (len(data) % down)
-        self._pending = data[usable:]
-        if usable == 0:
+        block, self._pending, copied = graphs.split_residual(
+            self._pending, np.asarray(mpx, np.float32),
+            self.config.resample_down)
+        profiling.span(JOIN_SPAN, t0, profiling.clock(), copied)
+        if not block:
             return np.zeros(0, np.float32)
         (b152, amp), carries, _ = self.graphs(
-            (), [data[:usable]], graphs.split_state(self.state)[1])
+            (), [block], graphs.split_state(self.state)[1])
         self.state = graphs.join_state(self.state, (), carries)
         self.pilot_amp = float(amp)
         return b152

@@ -33,7 +33,7 @@ from tpu_sdr_torch.ops import fused_channelizer as FC
 from tpu_sdr_torch.utils import design, graphs, profiling
 
 READ_SPAN = "WidebandStreamer.demodulate"  # the root span of a read
-JOIN_SPAN = "WidebandStreamer.join"        # the residual join
+JOIN_SPAN = "WidebandStreamer.join"        # the residual's bookkeeping
 
 
 @dataclass(frozen=True)
@@ -221,25 +221,27 @@ class WidebandStreamer:
             None
 
     def demodulate(self, buf: np.ndarray) -> np.ndarray:
+        """The residual and the read's whole quanta go to the step as two
+        pieces, written straight into its staging buffer; the read's tail
+        under one quantum is kept as the next residual.  ``buf`` may be
+        read-only, and is the caller's again when this returns."""
         t0 = profiling.clock()
-        data = np.concatenate([self._pending, np.asarray(buf, np.uint8)])
-        profiling.span(JOIN_SPAN, t0, profiling.clock(), data.nbytes)
-        audio = self._demodulate(data)
+        block, self._pending, copied = graphs.split_residual(
+            self._pending, np.asarray(buf, np.uint8), self._quantum)
+        profiling.span(JOIN_SPAN, t0, profiling.clock(), copied)
+        audio = self._demodulate(block)
         profiling.read_span(READ_SPAN, t0, profiling.clock(), self.last_mpx)
         return audio
 
-    def _demodulate(self, data: np.ndarray) -> np.ndarray:
-        usable = len(data) - (len(data) % self._quantum)
-        self._pending = data[usable:]
+    def _demodulate(self, block: tuple) -> np.ndarray:
         n_st = len(self.config.channels)
-        if usable == 0:
+        if not block:
             if self.config.emit_mpx:
                 self.last_mpx = np.zeros((n_st, 0), np.float32)
             return np.zeros((n_st, 0), np.float32)
         tail = [*self.state.quad, self.state.resamp.hist]
         front = [self.pfb_carry] if self.use_fused else list(self.state.pfb)
-        (audio, *mpx), carries, _ = self.graphs((), [data[:usable]],
-                                                front + tail)
+        (audio, *mpx), carries, _ = self.graphs((), [block], front + tail)
         pfb = self.state.pfb
         if self.use_fused:
             self.pfb_carry = carries[0]

@@ -21,6 +21,12 @@ from the key alone (a next phase, an output count).
   graph.  Every later call with that key copies the block into the static
   input (non-blocking, from a pinned staging buffer or from the card) and
   replays the graph.
+* A host input may come as a tuple of numpy pieces of one dtype whose
+  concatenation along the last axis is the input (a streamer's residual
+  and the head of its read, from :func:`split_residual`): the pieces are
+  written one after another into the staging buffer (on the CPU into the
+  static input), so no joined copy is built first.  The key holds the
+  shape of the whole input, so every split of it replays one graph.
 * Each graph ends by writing the new carries into the static carry
   buffers, which the streamer then holds as its carries.  A carry assigned
   from outside (a reset, a checkpoint load, a hand-over) is not one of
@@ -166,14 +172,65 @@ def join_state(tree, host: Sequence, tensors: Sequence[torch.Tensor]):
     return walk(tree)
 
 
+def split_residual(pending: np.ndarray, buf: np.ndarray, quantum: int
+                   ) -> tuple[tuple, np.ndarray, int]:
+    """A streamer's read cut into whole quanta along the last axis:
+    (the pieces of the usable part, the new residual, the bytes copied).
+
+    The usable part is ``(pending, the head of buf)``, pieces for a
+    step's host input; the new residual is a copy of the tail of ``buf``
+    under one quantum, owned by the streamer (``buf`` may be read-only or
+    reused by its caller).  Where the residual and the read together hold
+    no whole quantum, they are joined, which is small.  No usable part
+    gives ``()``.  ``pending`` is under one quantum, as this leaves it."""
+    have = pending.shape[-1]
+    total = have + buf.shape[-1]
+    usable = total - total % quantum
+    if usable == 0:
+        data = np.concatenate([pending, buf], axis=-1)
+        return (), data, data.nbytes
+    cut = usable - have
+    if cut == buf.shape[-1]:  # no tail: the residual is empty
+        return (pending, buf), pending[..., :0], 0
+    rest = buf[..., cut:].copy()
+    return (pending, buf[..., :cut]), rest, rest.nbytes
+
+
+def _shape(x) -> tuple:
+    """An input's shape; pieces give their concatenation's."""
+    if isinstance(x, tuple):
+        return x[0].shape[:-1] + (sum(p.shape[-1] for p in x),)
+    return tuple(x.shape)
+
+
 def _signature(xs) -> tuple:
-    return tuple((tuple(x.shape), str(x.dtype)) for x in xs)
+    return tuple((_shape(x), str(x[0].dtype)) if isinstance(x, tuple)
+                 else (tuple(x.shape), str(x.dtype)) for x in xs)
+
+
+def _on_host(x) -> bool:
+    """A numpy input, or numpy pieces."""
+    return isinstance(x, (np.ndarray, tuple))
+
+
+def _put(dst: np.ndarray, x) -> None:
+    """A host input into ``dst``: an array whole, pieces one after
+    another along the last axis."""
+    if not isinstance(x, tuple):
+        np.copyto(dst, x)
+        return
+    at = 0
+    for p in x:
+        n = p.shape[-1]
+        np.copyto(dst[..., at:at + n], p)
+        at += n
 
 
 def _torch_dtype(x) -> torch.dtype:
     if torch.is_tensor(x):
         return x.dtype
-    return torch.from_numpy(np.empty(0, dtype=x.dtype)).dtype
+    dtype = x[0].dtype if isinstance(x, tuple) else x.dtype
+    return torch.from_numpy(np.empty(0, dtype=dtype)).dtype
 
 
 def _np_dtype(dtype: torch.dtype) -> np.dtype:
@@ -183,6 +240,8 @@ def _np_dtype(dtype: torch.dtype) -> np.dtype:
 def _as_tensor(x, device: torch.device) -> torch.Tensor:
     if torch.is_tensor(x):
         return x.to(device)
+    if isinstance(x, tuple):
+        x = np.concatenate(x, axis=-1)
     x = np.ascontiguousarray(x)
     return torch.from_numpy(x if x.flags.writeable else x.copy()).to(device)
 
@@ -272,7 +331,8 @@ class StepGraphs:
                  Sequence[torch.Tensor]
                  ) -> tuple[list[np.ndarray], list[torch.Tensor], Any]:
         """One block: (host outputs, new carries, aux).  ``inputs`` may be
-        numpy arrays or tensors; ``carries`` are the streamer's."""
+        numpy arrays, tuples of numpy pieces or tensors; ``carries`` are
+        the streamer's."""
         return self._call("host", static, inputs, carries)
 
     def advance(self, static: Hashable, inputs: Sequence,
@@ -420,23 +480,23 @@ class StepGraphs:
         """The block into the static inputs; carries assigned from outside
         into the static carries.  Returns the bytes copied on the host (an
         input into its staging buffer, or on the CPU into its static
-        buffer)."""
+        buffer, once, whether it came whole or in pieces)."""
         staged = False
         copied = 0
         for static, stage, x in zip(e.inputs, e.staging, inputs):
             if x is static:
                 continue
-            host = isinstance(x, np.ndarray)
+            host = _on_host(x)
             if host and stage is None:  # the CPU's static buffer
-                np.copyto(static.numpy(), x)
-                copied += x.nbytes
+                _put(static.numpy(), x)
+                copied += static.nbytes
                 continue
             if stage is not None and (host or x.device.type == "cpu"):
                 if not staged and e.fence is not None:
                     e.fence.synchronize()  # the last copy out of it is done
                 staged = True
                 if host:
-                    np.copyto(stage.numpy(), x)
+                    _put(stage.numpy(), x)
                 else:
                     stage.copy_(x)
                 copied += stage.nbytes
@@ -456,12 +516,12 @@ class StepGraphs:
     def _new_entry(self, key, form, inputs, carries) -> _Entry:
         dev = self.device
         cuda = dev.type == "cuda"
-        statics = [torch.empty(tuple(x.shape), dtype=_torch_dtype(x),
+        statics = [torch.empty(_shape(x), dtype=_torch_dtype(x),
                                device=dev) for x in inputs]
-        staging = [torch.empty(tuple(x.shape), dtype=_torch_dtype(x),
+        staging = [torch.empty(_shape(x), dtype=_torch_dtype(x),
                                pin_memory=True)
-                   if cuda and (isinstance(x, np.ndarray)
-                                or x.device.type == "cpu") else None
+                   if cuda and (_on_host(x) or x.device.type == "cpu")
+                   else None
                    for x in inputs]
         sig = _signature(carries)
         if self._carries is None or _signature(self._carries) != sig \

@@ -8,9 +8,9 @@ the demod thread plus a buffer-latency log line (simple_fm.rs:101-104,
 * :class:`BlockStats`, a copy of the JAX package's running samples/s /
   latency meter with the same running-average semantics;
 * the program's spans and counters, taken at the layer boundaries of the
-  read path (``WidebandStreamer.demodulate`` and its residual join, each
-  graphed step's staging, replay, device wait and unpack, the RDS
-  decoders' joins, bits and group layer) and kept in two records:
+  read path (``WidebandStreamer.demodulate`` and its residual's
+  bookkeeping, each graphed step's staging, replay, device wait and
+  unpack, the RDS decoders' residuals, bits and group layer) and kept in two records:
 
   - the totals (:func:`totals`): a count and the nanoseconds of each span
     name, and each counter's sum.  Always kept, at the cost of a few
@@ -25,8 +25,8 @@ the demod thread plus a buffer-latency log line (simple_fm.rs:101-104,
     ranges: the profiler would draw those on the device too, as work.
 
   One counter exists, :data:`COPIED`: the bytes the program copies on
-  the host (each join, each copy of an input into a staging buffer, each
-  output unpacked).  Both records are the process's and take no lock:
+  the host (each residual kept or join made, each copy of an input into
+  a staging buffer, each output unpacked).  Both records are the process's and take no lock:
   spans come from one thread at a time, as the CLIs and the benchmark
   drive the streamers;
 * :func:`trace`, on ``torch.profiler`` (where the JAX package uses
