@@ -31,11 +31,17 @@ from torch import nn
 from tpu_sdr_torch import kernels
 from tpu_sdr_torch.models import wbfm as M
 from tpu_sdr_torch.ops import fm as F
-from tpu_sdr_torch.utils import design, graphs
+from tpu_sdr_torch.utils import design, graphs, profiling
 from tpu_sdr_torch.utils.design import WbfmConfig
 
 STATE_ROWS = 4
 LANES = 128
+
+# the spans of a read (utils.profiling): its root, and the residual's join
+READ_SPAN = "FusedWbfmStreamer.demodulate"
+JOIN_SPAN = "FusedWbfmStreamer.join"
+BATCH_READ_SPAN = "FusedWbfmBatchStreamer.demodulate"
+BATCH_JOIN_SPAN = "FusedWbfmBatchStreamer.join"
 
 # Kernel launches per wrapper: the main path's proof that it ran the
 # kernels.  Only the wrappers' CUDA branches add to these.
@@ -406,24 +412,31 @@ class FusedWbfm(nn.Module):
 
 
 def _split_pending(pending, buf, device, chunk_bytes: int):
-    """(whole chunks, new pending) of ``pending`` + ``buf`` along the last
-    axis.  A u8 tensor ``buf`` (already on the card, say, from
-    ``BlockFeeder.device_blocks``) is joined on ``device`` with one small
-    ``torch.cat`` and its residual stays there; a numpy ``buf`` is joined
-    in numpy, as before.  ``pending`` of either kind is taken over."""
+    """(whole chunks, new pending, bytes copied on the host) of ``pending``
+    + ``buf`` along the last axis.  A u8 tensor ``buf`` (already on the
+    card, say, from ``BlockFeeder.device_blocks``) is joined on ``device``
+    with one small ``torch.cat`` and its residual stays there; a numpy
+    ``buf`` is joined in numpy, as before.  ``pending`` of either kind is
+    taken over.  The bytes copied are the joined array's where the join is
+    made on the host, else none."""
+    copied = 0
     if torch.is_tensor(buf):
         if not torch.is_tensor(pending):
             pending = torch.from_numpy(np.ascontiguousarray(pending))
         buf = buf.to(device)
-        data = torch.cat([pending.to(device), buf], dim=-1) \
-            if pending.shape[-1] else buf
+        data = buf
+        if pending.shape[-1]:
+            data = torch.cat([pending.to(device), buf], dim=-1)
+            if data.device.type == "cpu":
+                copied = data.nbytes
     else:
         if torch.is_tensor(pending):
             pending = pending.cpu().numpy()
         data = np.concatenate([pending, np.asarray(buf, dtype=np.uint8)],
                               axis=-1)
+        copied = data.nbytes
     usable = data.shape[-1] - data.shape[-1] % chunk_bytes
-    return data[..., :usable], data[..., usable:]
+    return data[..., :usable], data[..., usable:], copied
 
 
 class FusedWbfmStreamer:
@@ -455,8 +468,15 @@ class FusedWbfmStreamer:
         return [audio], [carry, hist], None
 
     def demodulate(self, buf: np.ndarray | torch.Tensor) -> np.ndarray:
-        block, self._pending = _split_pending(self._pending, buf, self.device,
-                                              self.spec.chunk_bytes)
+        t0 = profiling.clock()
+        block, self._pending, copied = _split_pending(
+            self._pending, buf, self.device, self.spec.chunk_bytes)
+        profiling.span(JOIN_SPAN, t0, profiling.clock(), copied)
+        audio = self._demodulate(block)
+        profiling.read_span(READ_SPAN, t0, profiling.clock())
+        return audio
+
+    def _demodulate(self, block) -> np.ndarray:
         usable = block.shape[-1]
         if usable == 0:
             return np.zeros(0, dtype=np.float32)
@@ -516,13 +536,25 @@ class FusedWbfmBatchStreamer:
         return [audio], [states, hists, phases], None
 
     def demodulate(self, bufs: np.ndarray | torch.Tensor) -> np.ndarray:
-        block, self._pending = _split_pending(self._pending, bufs, self.device,
-                                              self.spec.chunk_bytes)
-        usable = block.shape[-1]
-        if usable == 0:
-            return np.zeros((self.stations, 0), dtype=np.float32)
+        """The join span holds the join and, where the rows' whole chunks
+        are not one contiguous block (a residual is left), their copy into
+        one: both are host copies of the read."""
+        t0 = profiling.clock()
+        block, self._pending, copied = _split_pending(
+            self._pending, bufs, self.device, self.spec.chunk_bytes)
         if not torch.is_tensor(block):
-            block = np.ascontiguousarray(block)
+            whole = np.ascontiguousarray(block)
+            if whole is not block:
+                copied += whole.nbytes
+            block = whole
+        profiling.span(BATCH_JOIN_SPAN, t0, profiling.clock(), copied)
+        audio = self._demodulate(block)
+        profiling.read_span(BATCH_READ_SPAN, t0, profiling.clock())
+        return audio
+
+    def _demodulate(self, block) -> np.ndarray:
+        if block.shape[-1] == 0:
+            return np.zeros((self.stations, 0), dtype=np.float32)
         (audio,), carries, _ = self.graphs(
             self._uniform, [block],
             [self.states, self.resamp_hists, self._phases])

@@ -9,8 +9,10 @@ the demod thread plus a buffer-latency log line (simple_fm.rs:101-104,
   latency meter with the same running-average semantics;
 * the program's spans and counters, taken at the layer boundaries of the
   read path (``WidebandStreamer.demodulate`` and its residual's
-  bookkeeping, each graphed step's staging, replay, device wait and
-  unpack, the RDS decoders' residuals, bits and group layer) and kept in two records:
+  bookkeeping; ``FusedWbfmStreamer.demodulate`` and
+  ``FusedWbfmBatchStreamer.demodulate`` and their residual's join; each
+  graphed step's staging, replay, device wait and unpack, the RDS
+  decoders' residuals, bits and group layer) and kept in two records:
 
   - the totals (:func:`totals`): a count and the nanoseconds of each span
     name, and each counter's sum.  Always kept, at the cost of a few
