@@ -168,6 +168,10 @@ def test_fused_batch_split_invariance(fused_data):
     np.testing.assert_allclose(split, whole, rtol=1e-5, atol=1e-6)
     assert FF.FusedWbfmBatchStreamer(2, device=CPU).demodulate(
         fused_data[:2, :100]).shape == (2, 0)
+    # a read of other rows than the stations' is refused, not broadcast
+    for bad in (fused_data[0, :CHUNK + 10], fused_data[:3, :CHUNK + 10]):
+        with pytest.raises(ValueError):
+            FF.FusedWbfmBatchStreamer(2, device=CPU).demodulate(bad)
 
 
 # ---- the station axis of the wrappers --------------------------------------

@@ -1380,6 +1380,41 @@ def test_graphed_wideband_reads_in_pieces_equal_disabled(wideband_capture,
     assert s.graphs.graph is not None
 
 
+def test_graphed_batch_reads_in_pieces_equal_joined_blocks(dev):
+    """``FusedWbfmBatchStreamer(16)`` under graphs, fed 262,144-byte rows
+    from one reused read-only (16, 262,144) buffer as the fleet's caller
+    hands them: each row's residual and whole chunks written as pieces into
+    the staging buffer's rows.  Over 260 reads both keys (2 and 3 chunks a
+    row) are captured and replayed, and the audio is bit-equal to a twin
+    fed the usable blocks joined, contiguous."""
+    stations, rb, n_reads = 16, 262_144, 260
+    base = np.random.default_rng(21).integers(
+        0, 256, (stations, 8 * rb), dtype=np.uint8)
+    scratch = bytearray(stations * rb)
+    s = FF.FusedWbfmBatchStreamer(stations, device=dev)
+    twin = FF.FusedWbfmBatchStreamer(stations, device=dev)
+    pending = base[:, :0]
+    widths = []
+    for i in range(n_reads):
+        rows = base[:, i % 8 * rb:(i % 8 + 1) * rb]
+        np.frombuffer(scratch, np.uint8).reshape(stations, rb)[:] = rows
+        view = memoryview(scratch).toreadonly()
+        got = s.demodulate(np.frombuffer(view, np.uint8).reshape(stations,
+                                                                  rb))
+        del view
+        joined = np.concatenate([pending, rows], axis=1)
+        usable = joined.shape[1] - joined.shape[1] % CHUNK
+        pending = joined[:, usable:]
+        exp = twin.demodulate(np.ascontiguousarray(joined[:, :usable]))
+        assert got.shape == exp.shape and np.array_equal(got, exp), i
+        assert np.array_equal(s._pending, pending), i
+        widths.append(usable // CHUNK)
+    assert sorted(set(widths)) == [2, 3] and widths.count(3) >= 2
+    assert s.graphs.keys == twin.graphs.keys and len(s.graphs.keys) == 2
+    assert (s.graphs.captures, s.graphs.replays) == (2, n_reads - 2)
+    assert s.graphs.graph is not None
+
+
 def test_graph_capture_failure_names_the_streamer(dev):
     """A step that syncs with the host cannot be captured: the error names
     the streamer and the key, and nothing runs eagerly in its place."""

@@ -130,10 +130,13 @@ def test_a_dongles_piece_holds_the_plans_tones(channel, holds):
 
 
 def _expected_copies(streamer, reads) -> tuple[list[int], int, int]:
-    """The join's bytes a call, every byte copied on the host (the
-    joins (for the batch also the copy of the rows' whole chunks into one
-    block where a residual is left), the copy into the CPU's static input,
-    the float32 audio unpacked), and the calls of the graphed step."""
+    """The join's bytes a call, every byte copied on the host, and the
+    calls of the graphed step.  A numpy read goes to the step in pieces:
+    its join copies the read's tail under one chunk, kept as the residual,
+    or, where the residual and the read hold no whole chunk, the two
+    joined; a tensor read is joined where a residual leads it.  Then the
+    copy into the CPU's static input (once, whole or in pieces) and the
+    float32 audio unpacked."""
     rows = getattr(streamer, "stations", 1)
     up, down = streamer.spec.up, streamer.spec.down
     frame = 2 * streamer.spec.decim * down
@@ -142,10 +145,10 @@ def _expected_copies(streamer, reads) -> tuple[list[int], int, int]:
         joined = pending + buf.shape[-1]
         usable = joined - joined % CHUNK
         pending = joined - usable
-        join = 0 if torch.is_tensor(buf) and joined == buf.shape[-1] \
-            else rows * joined
-        if rows > 1 and pending and usable:
-            join += rows * usable
+        if torch.is_tensor(buf):
+            join = 0 if joined == buf.shape[-1] else rows * joined
+        else:
+            join = rows * (pending if usable else joined)
         joins.append(join)
         total += join + rows * (usable + usable // frame * up * 4)
         steps += usable > 0

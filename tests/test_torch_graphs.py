@@ -902,36 +902,65 @@ def _rds_stream(fused=None):
             np.float32, feed)
 
 
+def _fused_stream(stations=None):
+    """The fused chain, one station, or a batch of ``stations`` rows, each
+    its own seeded capture."""
+    def capture(seed):
+        return np.asarray(synth.synth_wbfm_u8(1_000_000, noise_std=0.02,
+                                              seed=seed)[0], np.uint8)
+
+    if stations is None:
+        make, data = (lambda: FF.FusedWbfmStreamer(device=CPU)), capture(5)
+    else:
+        data = np.stack([capture(5 + k) for k in range(stations)])
+
+        def make():
+            return FF.FusedWbfmBatchStreamer(stations, device=CPU)
+
+    return make, data, CHUNK, np.uint8, lambda s, b: (s.demodulate(b),)
+
+
+STREAMS = {
+    "wideband_fused": lambda: _wideband_stream(True),
+    "wideband_plain": lambda: _wideband_stream(False),
+    "rds": _rds_stream,
+    "fused_one": _fused_stream,
+    "fused_batch": lambda: _fused_stream(4),
+}
+
+
 @pytest.mark.parametrize("residual", [0, 1000, "quantum-1", "short"])
-@pytest.mark.parametrize("name", ["wideband_fused", "wideband_plain", "rds"])
+@pytest.mark.parametrize("name", list(STREAMS))
 def test_residual_pieces_equal_the_blocks_joined(name, residual):
     """Reads that leave a residual of 0, 1,000 or one quantum less one
-    sample, or are under a quantum, fed from one reused read-only buffer:
-    the outputs bit-equal to a second streamer fed, call for call, the
-    usable blocks joined here, and the same graph keys, which follow the
-    usable lengths and not how the residual and the read split them."""
-    make, data, quantum, dtype, feed = (
-        _rds_stream() if name == "rds" else
-        _wideband_stream(name == "wideband_fused"))
+    sample, or are under a quantum, fed from one reused read-only buffer
+    (a batch's rows strided in it): the outputs bit-equal to a second
+    streamer fed, call for call, the usable blocks joined here, and the
+    same graph keys, which follow the usable lengths and not how the
+    residual and the read split them."""
+    make, data, quantum, dtype, feed = STREAMS[name]()
     extra = {"quantum-1": quantum - 1, "short": 0}.get(residual, residual)
     reads = [quantum // 3] * 7 if residual == "short" else \
         [(1 + k % 2) * quantum + extra for k in range(6)]
     s, ref = make(), make()
-    scratch = bytearray(max(reads) * np.dtype(dtype).itemsize)
-    pending = np.zeros(0, dtype)
+    rows = data.shape[:-1]
+    shape = rows + (max(reads),)
+    scratch = bytearray(int(np.prod(shape)) * np.dtype(dtype).itemsize)
+    pending = np.zeros(rows + (0,), dtype)
     at, with_output = 0, 0
     for n in reads:
-        chunk = data[at:at + n]
+        chunk = data[..., at:at + n]
         at += n
-        nbytes = chunk.nbytes
-        scratch[:nbytes] = chunk.tobytes()  # the caller reuses its buffer
-        view = memoryview(scratch)[:nbytes].toreadonly()
-        got = feed(s, np.frombuffer(view, dtype))
+        n = chunk.shape[-1]  # the capture's last read may be short
+        # the caller reuses its buffer
+        np.frombuffer(scratch, dtype).reshape(shape)[..., :n] = chunk
+        view = memoryview(scratch).toreadonly()
+        got = feed(s, np.frombuffer(view, dtype).reshape(shape)[..., :n])
         del view
-        joined = np.concatenate([pending, chunk])
-        usable = len(joined) - len(joined) % quantum
-        pending = joined[usable:]
-        exp = feed(ref, joined[:usable])
+        joined = np.concatenate([pending, chunk], axis=-1)
+        usable = joined.shape[-1] - joined.shape[-1] % quantum
+        pending = joined[..., usable:]
+        exp = feed(ref, joined[..., :usable])
         for x, y in zip(exp, got):
             assert x.dtype == y.dtype and np.array_equal(x, y), n
         with_output += usable > 0
@@ -940,6 +969,35 @@ def test_residual_pieces_equal_the_blocks_joined(name, residual):
     assert s.graphs.keys == ref.graphs.keys
     assert (s.graphs.captures, s.graphs.replays) == \
         (ref.graphs.captures, ref.graphs.replays)
+
+
+@pytest.mark.parametrize("name", ["fused_one", "fused_batch"])
+def test_tensor_and_numpy_reads_in_one_stream(name):
+    """A fused streamer fed numpy reads and u8 tensors in turn, the
+    residual passing from one kind to the other (and a tensor read with
+    no residual, and a read under a chunk after each kind): the audio
+    and the residual bit-equal to a twin fed the usable blocks joined."""
+    make, data, quantum, _, feed = STREAMS[name]()
+    reads = [(quantum + 1000, False), (quantum // 2, True),
+             (2 * quantum - 7, False), (300, True), (quantum + 300, True),
+             (5000, False), (quantum - 5, False), (2 * quantum, True),
+             (quantum + 17, False)]
+    assert sum(n for n, _ in reads) <= data.shape[-1]
+    s, ref = make(), make()
+    pending = data[..., :0]
+    at = 0
+    for n, tensor in reads:
+        chunk = data[..., at:at + n]
+        at += n
+        got = feed(s, torch.from_numpy(chunk.copy()) if tensor else chunk)
+        joined = np.concatenate([pending, chunk], axis=-1)
+        usable = joined.shape[-1] - joined.shape[-1] % quantum
+        pending = joined[..., usable:]
+        exp = feed(ref, joined[..., :usable])
+        for x, y in zip(exp, got):
+            assert x.dtype == y.dtype and np.array_equal(x, y), n
+        assert torch.is_tensor(s._pending) is tensor
+        assert np.array_equal(np.asarray(s._pending), pending), n
 
 
 def test_soak_wbfm_streamer_2000_blocks():

@@ -415,28 +415,40 @@ def _split_pending(pending, buf, device, chunk_bytes: int):
     """(whole chunks, new pending, bytes copied on the host) of ``pending``
     + ``buf`` along the last axis.  A u8 tensor ``buf`` (already on the
     card, say, from ``BlockFeeder.device_blocks``) is joined on ``device``
-    with one small ``torch.cat`` and its residual stays there; a numpy
-    ``buf`` is joined in numpy, as before.  ``pending`` of either kind is
-    taken over.  The bytes copied are the joined array's where the join is
-    made on the host, else none."""
-    copied = 0
-    if torch.is_tensor(buf):
-        if not torch.is_tensor(pending):
-            pending = torch.from_numpy(np.ascontiguousarray(pending))
-        buf = buf.to(device)
-        data = buf
-        if pending.shape[-1]:
-            data = torch.cat([pending.to(device), buf], dim=-1)
-            if data.device.type == "cpu":
-                copied = data.nbytes
-    else:
+    with one small ``torch.cat`` and its residual stays there.  A numpy
+    ``buf`` is cut by :func:`graphs.split_residual`: its whole chunks are
+    the pieces (residual, head of ``buf``) that the step writes straight
+    into its staging buffer, and only ``buf``'s tail under one chunk is
+    copied, as the new residual.  ``pending`` of either kind is taken over.
+    The bytes copied are those of a join made on the host, or of the tail
+    kept."""
+    if not torch.is_tensor(buf):
         if torch.is_tensor(pending):
             pending = pending.cpu().numpy()
-        data = np.concatenate([pending, np.asarray(buf, dtype=np.uint8)],
-                              axis=-1)
-        copied = data.nbytes
+        buf = np.asarray(buf, dtype=np.uint8)
+        if buf.shape[:-1] != pending.shape[:-1]:
+            raise ValueError(f"a read of shape {buf.shape} does not continue "
+                             f"rows of shape {pending.shape[:-1]}")
+        return graphs.split_residual(pending, buf, chunk_bytes)
+    copied = 0
+    if not torch.is_tensor(pending):
+        pending = torch.from_numpy(np.ascontiguousarray(pending))
+    buf = buf.to(device)
+    data = buf
+    if pending.shape[-1]:
+        data = torch.cat([pending.to(device), buf], dim=-1)
+        if data.device.type == "cpu":
+            copied = data.nbytes
     usable = data.shape[-1] - data.shape[-1] % chunk_bytes
     return data[..., :usable], data[..., usable:], copied
+
+
+def _width(block) -> int:
+    """The bytes of a row of whole chunks: a tensor's, or its pieces'
+    together (``()`` holds none)."""
+    if isinstance(block, tuple):
+        return sum(p.shape[-1] for p in block)
+    return block.shape[-1]
 
 
 class FusedWbfmStreamer:
@@ -477,7 +489,7 @@ class FusedWbfmStreamer:
         return audio
 
     def _demodulate(self, block) -> np.ndarray:
-        usable = block.shape[-1]
+        usable = _width(block)
         if usable == 0:
             return np.zeros(0, dtype=np.float32)
         (audio,), (self.state, self.resamp_hist), _ = self.graphs(
@@ -536,24 +548,21 @@ class FusedWbfmBatchStreamer:
         return [audio], [states, hists, phases], None
 
     def demodulate(self, bufs: np.ndarray | torch.Tensor) -> np.ndarray:
-        """The join span holds the join and, where the rows' whole chunks
-        are not one contiguous block (a residual is left), their copy into
-        one: both are host copies of the read."""
+        """A numpy read's rows go to the step as pieces (each row's residual,
+        then its whole chunks), written straight into the staging buffer's
+        strided rows; the join span holds the residual's bookkeeping.
+        ``bufs`` may be read-only, and is the caller's again when this
+        returns."""
         t0 = profiling.clock()
         block, self._pending, copied = _split_pending(
             self._pending, bufs, self.device, self.spec.chunk_bytes)
-        if not torch.is_tensor(block):
-            whole = np.ascontiguousarray(block)
-            if whole is not block:
-                copied += whole.nbytes
-            block = whole
         profiling.span(BATCH_JOIN_SPAN, t0, profiling.clock(), copied)
         audio = self._demodulate(block)
         profiling.read_span(BATCH_READ_SPAN, t0, profiling.clock())
         return audio
 
     def _demodulate(self, block) -> np.ndarray:
-        if block.shape[-1] == 0:
+        if _width(block) == 0:
             return np.zeros((self.stations, 0), dtype=np.float32)
         (audio,), carries, _ = self.graphs(
             self._uniform, [block],
