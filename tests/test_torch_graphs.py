@@ -876,6 +876,56 @@ def test_split_residual_keeps_an_owned_tail():
     assert len(pieces) == 2 and np.array_equal(np.concatenate(pieces), (
         np.concatenate([buf[249:], buf[:10], buf[:5]])))
     assert rest.shape == (0,) and copied == 0
+    # a tensor read: moved to the device, joined there only where a
+    # residual leads it (bytes counted on the CPU alone), the usable part
+    # and the residual views of one tensor there
+    t = torch.from_numpy(buf.copy())
+    block, rest, copied = graphs.split_residual(rest, t, 16, CPU)
+    assert block.data_ptr() == t.data_ptr() and copied == 0
+    assert torch.equal(block, t[:240]) and torch.equal(rest, t[240:])
+    block, rest, copied = graphs.split_residual(rest, t[:30], 16, CPU)
+    assert torch.is_tensor(rest) and rest.device == CPU
+    assert torch.equal(block, torch.cat([t[240:], t[:22]]))
+    assert torch.equal(rest, t[22:30]) and copied == 40
+    assert rest.untyped_storage().data_ptr() == \
+        block.untyped_storage().data_ptr()
+    assert graphs.width(block) == 32 and graphs.width(()) == 0
+    # a numpy read after a tensor residual takes it over on the host
+    pieces, rest, copied = graphs.split_residual(rest, buf[:8], 16)
+    assert isinstance(pieces[0], np.ndarray) and graphs.width(pieces) == 16
+    assert np.array_equal(np.concatenate(pieces), np.concatenate(
+        [buf[22:30], buf[:8]])) and copied == 0 and rest.shape == (0,)
+
+
+@pytest.mark.parametrize("tensor", [False, True])
+def test_split_residual_refuses_rows_that_do_not_continue(tensor):
+    """A batch read whose leading shape is not the residual's rows."""
+    pending = np.zeros((4, 3), np.uint8)
+    read = np.zeros((3, 100), np.uint8)
+    with pytest.raises(ValueError, match="does not continue"):
+        graphs.split_residual(pending, torch.from_numpy(read) if tensor
+                              else read, 16)
+
+
+def test_graph_runtime_imports_no_kernel_wrapper():
+    """``utils.graphs`` reads the launch counters from the registry in
+    ``kernels``, where each wrapper registers its own on import."""
+    import ast
+    import inspect
+    from tpu_sdr_torch import kernels
+    from tpu_sdr_torch.parallel import cuda_halo, shard_halo
+
+    tree = ast.parse(inspect.getsource(graphs))
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [f"{n.module}.{a.name}" for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) for a in n.names]
+    assert not [m for m in names if m.startswith(("tpu_sdr_torch.ops",
+                                                  "tpu_sdr_torch.parallel"))]
+    registered = [id(c) for c in kernels.LAUNCH_COUNTERS]
+    for counter in (FF.LAUNCHES, FC.LAUNCHES, cuda_halo.LAUNCHES,
+                    shard_halo.LAUNCHES):
+        assert registered.count(id(counter)) == 1
 
 
 def _wideband_stream(fused: bool):
@@ -920,12 +970,79 @@ def _fused_stream(stations=None):
     return make, data, CHUNK, np.uint8, lambda s, b: (s.demodulate(b),)
 
 
+def _float_stream(stations=None):
+    """The float chain (fir), one station with its multiplex, or a batch
+    of ``stations`` rows cut at ``2*decim`` bytes."""
+    def capture(seed):
+        return np.asarray(synth.synth_wbfm_u8(20_000, noise_std=0.02,
+                                              seed=seed)[0], np.uint8)
+
+    if stations is None:
+        config = WbfmConfig(emit_mpx=True)
+
+        def feed(s, b):
+            return s.demodulate(b), s.last_mpx
+
+        return (lambda: TW.WbfmStreamer(config, device=CPU), capture(6),
+                2 * config.decim * config.resample_down, np.uint8, feed)
+    config = WbfmConfig()
+    return (lambda: TB.WbfmBatchStreamer(stations, config, device=CPU),
+            np.stack([capture(8 + k) for k in range(stations)]),
+            2 * config.decim, np.uint8, lambda s, b: (s.demodulate(b),))
+
+
+def _stereo_stream():
+    config = TS.StereoConfig(deemphasis_tau=75e-6, emit_mpx=True)
+    u8, _, _ = synth.synth_wbfm_stereo_u8(12_000, capture_rate=1_020_000)
+
+    def feed(s, b):
+        return s.demodulate(b), s.last_mpx
+
+    return (lambda: TS.WbfmStereoStreamer(config, device=CPU),
+            np.asarray(u8, np.uint8),
+            2 * config.base.decim * config.base.resample_down, np.uint8, feed)
+
+
+def _multimode_stream():
+    """USB: the SSB mixer's indices go in beside the block."""
+    config = TM.MultimodeConfig(mode="usb", fine_tune_hz=120.0)
+    data = np.asarray(synth.synth_wbfm_u8(20_000, deviation=5_000.0,
+                                          noise_std=0.02, seed=15)[0],
+                      np.uint8)
+
+    def feed(s, b):
+        return s.demodulate(b), np.float32(s.last_power or 0.0)
+
+    return (lambda: TM.MultimodeStreamer(config, device=CPU), data,
+            2 * config.decim * config.resample_down, np.uint8, feed)
+
+
+def _psd_stream():
+    data = np.asarray(synth.synth_wbfm_u8(10_000, noise_std=0.02,
+                                          seed=23)[0], np.uint8)
+    return (lambda: SP.PsdStreamer(PSD_FFT, device=CPU), data, 2 * PSD_FFT,
+            np.uint8, _psd_feed)
+
+
+def _pfb_stream():
+    data = np.random.default_rng(25).integers(0, 256, 64 * 2_500,
+                                              dtype=np.uint8)
+    return (lambda: FC.FusedPfbStreamer(*PFB, device=CPU), data,
+            FC.default_spec(*PFB).chunk_bytes, np.uint8, _pfb_feed)
+
+
 STREAMS = {
     "wideband_fused": lambda: _wideband_stream(True),
     "wideband_plain": lambda: _wideband_stream(False),
     "rds": _rds_stream,
     "fused_one": _fused_stream,
     "fused_batch": lambda: _fused_stream(4),
+    "float_one": _float_stream,
+    "float_batch": lambda: _float_stream(3),
+    "stereo": _stereo_stream,
+    "multimode": _multimode_stream,
+    "psd": _psd_stream,
+    "pfb": _pfb_stream,
 }
 
 

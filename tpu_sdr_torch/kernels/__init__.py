@@ -13,8 +13,10 @@ as ``c_void_p``, and every launch returns its CUDA status, which
 :func:`check_tensor` (or, for a station batch whose rows sit at a stride,
 :func:`check_rows`) before its pointer goes to C.
 
-Nothing here runs at import time: the CPU tests import the port without a
-compiler or a card.
+Each wrapper module's launch counter (its ``LAUNCHES``) is registered
+here, which ``utils.graphs`` reads to count a graph's launches at replay.
+Nothing here builds at import time: the CPU tests import the port without
+a compiler or a card.
 """
 
 from __future__ import annotations
@@ -39,6 +41,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _loaded: "Library | None" = None
+
+
+LAUNCH_COUNTERS: list[dict[str, int]] = []  # every wrapper's LAUNCHES
+
+
+def launch_counter(*names: str) -> dict[str, int]:
+    """A wrapper's launch counts, from 0, registered in LAUNCH_COUNTERS."""
+    counts = dict.fromkeys(names, 0)
+    LAUNCH_COUNTERS.append(counts)
+    return counts
 
 
 @dataclass

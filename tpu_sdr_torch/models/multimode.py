@@ -260,13 +260,12 @@ class MultimodeStreamer:
         return [audio, power], new_carries, new_ints
 
     def demodulate(self, buf: np.ndarray) -> np.ndarray:
-        data = np.concatenate([self._pending, np.asarray(buf, np.uint8)])
-        usable = len(data) - (len(data) % self._quantum)
-        self._pending = data[usable:]
-        if usable == 0:
+        block, self._pending, _ = graphs.split_residual(
+            self._pending, buf, self._quantum)
+        if graphs.width(block) == 0:
             return np.zeros(0, np.float32)
         state = self.state
-        inputs = [data[:usable]]
+        inputs = [block]
         if self.config.mode in ("usb", "lsb"):
             # the key sees indices 0; the step's ints are then the moves
             inputs.append(np.array([state.ssb_phase, state.ssb_phase2],

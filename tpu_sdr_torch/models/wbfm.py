@@ -152,6 +152,7 @@ class WbfmStreamer:
         self.device = torch.device(device)
         self.params = WbfmParams(self.config, self.device)
         self.state = init_state(self.config, self.device)
+        self._quantum = 2 * self.config.decim * self.config.resample_down
         self._pending = np.zeros(0, dtype=np.uint8)
         self.last_mpx: np.ndarray | None = None  # set when config.emit_mpx
         self.graphs = graphs.StepGraphs(type(self).__name__, self._step,
@@ -169,9 +170,9 @@ class WbfmStreamer:
         new_ints, new_carries = graphs.split_state(new)
         return outputs, new_carries, (ints, new_ints)
 
-    def _run(self, block: np.ndarray) -> list[np.ndarray]:
+    def _run(self, block) -> list[np.ndarray]:
         st, cfg = self.state, self.config
-        n = block.shape[-1] // (2 * cfg.decim)
+        n = graphs.width(block) // (2 * cfg.decim)
         inputs = [block]
         count = None
         if n % cfg.resample_down:  # the unaligned resamplers
@@ -190,15 +191,16 @@ class WbfmStreamer:
         return outputs
 
     def demodulate(self, buf: np.ndarray) -> np.ndarray:
-        data = np.concatenate([self._pending, np.asarray(buf, dtype=np.uint8)])
-        quantum = 2 * self.config.decim * self.config.resample_down
-        usable = len(data) - (len(data) % quantum)
-        self._pending = data[usable:]
-        if usable == 0:
-            if self.config.emit_mpx:
-                self.last_mpx = np.zeros(0, dtype=np.float32)
-            return np.zeros(0, dtype=np.float32)
-        out = self._run(data[:usable])
+        block, self._pending, _ = graphs.split_residual(
+            self._pending, buf, self._quantum)
+        if graphs.width(block) == 0:
+            empty = np.zeros(self._pending.shape[:-1] + (0,), np.float32)
+            return self._outputs([empty, empty])
+        return self._outputs(self._run(block))
+
+    def _outputs(self, out: list[np.ndarray]) -> np.ndarray:
+        """A call's audio; with ``config.emit_mpx`` its multiplex goes to
+        ``last_mpx``."""
         if self.config.emit_mpx:
             self.last_mpx = out[1]
         return out[0]

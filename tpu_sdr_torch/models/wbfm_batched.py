@@ -64,14 +64,8 @@ class WbfmBatchStreamer(wbfm.WbfmStreamer):
         super().__init__(config, device=device)
         self.stations = stations
         self.state = init_batch_state(self.config, stations, self.device)
+        self._quantum = 2 * self.config.decim
         self._pending = np.zeros((stations, 0), dtype=np.uint8)
 
-    def demodulate(self, bufs: np.ndarray) -> np.ndarray:
-        data = np.concatenate([self._pending, np.asarray(bufs, np.uint8)],
-                              axis=1)
-        quantum = 2 * self.config.decim
-        usable = data.shape[1] - (data.shape[1] % quantum)
-        self._pending = data[:, usable:]
-        if usable == 0:
-            return np.zeros((self.stations, 0), np.float32)
-        return self._run(np.ascontiguousarray(data[:, :usable]))[0]
+    def _outputs(self, out: list[np.ndarray]) -> np.ndarray:
+        return out[0]  # the batch keeps no multiplex

@@ -202,15 +202,14 @@ class WbfmStereoStreamer:
         return outputs, new_carries, new_ints
 
     def demodulate(self, buf: np.ndarray) -> np.ndarray:
-        data = np.concatenate([self._pending, np.asarray(buf, np.uint8)])
-        usable = len(data) - (len(data) % self._quantum)
-        self._pending = data[usable:]
-        if usable == 0:
+        block, self._pending, _ = graphs.split_residual(
+            self._pending, buf, self._quantum)
+        if graphs.width(block) == 0:
             if self.config.emit_mpx:
                 self.last_mpx = np.zeros(0, np.float32)
             return np.zeros((2, 0), np.float32)
         ints, carries = graphs.split_state(self.state)
-        out, carries, ints = self.graphs(ints, [data[:usable]], carries)
+        out, carries, ints = self.graphs(ints, [block], carries)
         self.state = graphs.join_state(self.state, ints, carries)
         if self.config.emit_mpx:
             self.last_mpx = out[1]

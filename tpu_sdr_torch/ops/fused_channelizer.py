@@ -41,7 +41,7 @@ from tpu_sdr_torch.utils import design, graphs
 
 # Kernel launches of the wrapper: the main path's proof that it ran K3.
 # Only the wrapper's CUDA branch adds to it.
-LAUNCHES = {"pfb_channelize": 0}
+LAUNCHES = kernels.launch_counter("pfb_channelize")
 
 
 def reset_launch_counts() -> None:
@@ -259,12 +259,11 @@ class FusedPfbStreamer:
         return [y_re, y_im], [new], None
 
     def channelize(self, buf: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-        data = np.concatenate([self._pending, np.asarray(buf, np.uint8)])
-        usable = len(data) - (len(data) % self.spec.chunk_bytes)
-        self._pending = data[usable:]
-        if usable == 0:
+        block, self._pending, _ = graphs.split_residual(
+            self._pending, buf, self.spec.chunk_bytes)
+        if graphs.width(block) == 0:
             z = np.zeros((0, self.spec.out_channels), np.float32)
             return z, z
-        (y_re, y_im), (self.state,), _ = self.graphs((), [data[:usable]],
+        (y_re, y_im), (self.state,), _ = self.graphs((), [block],
                                                      [self.state])
         return y_re, y_im

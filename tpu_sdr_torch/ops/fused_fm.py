@@ -45,7 +45,7 @@ BATCH_JOIN_SPAN = "FusedWbfmBatchStreamer.join"
 
 # Kernel launches per wrapper: the main path's proof that it ran the
 # kernels.  Only the wrappers' CUDA branches add to these.
-LAUNCHES = {"fm_front": 0, "fm_resample": 0}
+LAUNCHES = kernels.launch_counter("fm_front", "fm_resample")
 
 
 def reset_launch_counts() -> None:
@@ -411,46 +411,6 @@ class FusedWbfm(nn.Module):
                                 self.h_poly, self.spec)
 
 
-def _split_pending(pending, buf, device, chunk_bytes: int):
-    """(whole chunks, new pending, bytes copied on the host) of ``pending``
-    + ``buf`` along the last axis.  A u8 tensor ``buf`` (already on the
-    card, say, from ``BlockFeeder.device_blocks``) is joined on ``device``
-    with one small ``torch.cat`` and its residual stays there.  A numpy
-    ``buf`` is cut by :func:`graphs.split_residual`: its whole chunks are
-    the pieces (residual, head of ``buf``) that the step writes straight
-    into its staging buffer, and only ``buf``'s tail under one chunk is
-    copied, as the new residual.  ``pending`` of either kind is taken over.
-    The bytes copied are those of a join made on the host, or of the tail
-    kept."""
-    if not torch.is_tensor(buf):
-        if torch.is_tensor(pending):
-            pending = pending.cpu().numpy()
-        buf = np.asarray(buf, dtype=np.uint8)
-        if buf.shape[:-1] != pending.shape[:-1]:
-            raise ValueError(f"a read of shape {buf.shape} does not continue "
-                             f"rows of shape {pending.shape[:-1]}")
-        return graphs.split_residual(pending, buf, chunk_bytes)
-    copied = 0
-    if not torch.is_tensor(pending):
-        pending = torch.from_numpy(np.ascontiguousarray(pending))
-    buf = buf.to(device)
-    data = buf
-    if pending.shape[-1]:
-        data = torch.cat([pending.to(device), buf], dim=-1)
-        if data.device.type == "cpu":
-            copied = data.nbytes
-    usable = data.shape[-1] - data.shape[-1] % chunk_bytes
-    return data[..., :usable], data[..., usable:], copied
-
-
-def _width(block) -> int:
-    """The bytes of a row of whole chunks: a tensor's, or its pieces'
-    together (``()`` holds none)."""
-    if isinstance(block, tuple):
-        return sum(p.shape[-1] for p in block)
-    return block.shape[-1]
-
-
 class FusedWbfmStreamer:
     """Feed u8 blocks of any size, receive float audio: whole chunks
     (``spec.chunk_bytes``) go through the kernels, the residual leads the
@@ -481,15 +441,15 @@ class FusedWbfmStreamer:
 
     def demodulate(self, buf: np.ndarray | torch.Tensor) -> np.ndarray:
         t0 = profiling.clock()
-        block, self._pending, copied = _split_pending(
-            self._pending, buf, self.device, self.spec.chunk_bytes)
+        block, self._pending, copied = graphs.split_residual(
+            self._pending, buf, self.spec.chunk_bytes, self.device)
         profiling.span(JOIN_SPAN, t0, profiling.clock(), copied)
         audio = self._demodulate(block)
         profiling.read_span(READ_SPAN, t0, profiling.clock())
         return audio
 
     def _demodulate(self, block) -> np.ndarray:
-        usable = _width(block)
+        usable = graphs.width(block)
         if usable == 0:
             return np.zeros(0, dtype=np.float32)
         (audio,), (self.state, self.resamp_hist), _ = self.graphs(
@@ -554,15 +514,15 @@ class FusedWbfmBatchStreamer:
         ``bufs`` may be read-only, and is the caller's again when this
         returns."""
         t0 = profiling.clock()
-        block, self._pending, copied = _split_pending(
-            self._pending, bufs, self.device, self.spec.chunk_bytes)
+        block, self._pending, copied = graphs.split_residual(
+            self._pending, bufs, self.spec.chunk_bytes, self.device)
         profiling.span(BATCH_JOIN_SPAN, t0, profiling.clock(), copied)
         audio = self._demodulate(block)
         profiling.read_span(BATCH_READ_SPAN, t0, profiling.clock())
         return audio
 
     def _demodulate(self, block) -> np.ndarray:
-        if _width(block) == 0:
+        if graphs.width(block) == 0:
             return np.zeros((self.stations, 0), dtype=np.float32)
         (audio,), carries, _ = self.graphs(
             self._uniform, [block],

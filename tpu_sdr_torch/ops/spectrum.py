@@ -121,16 +121,12 @@ class PsdStreamer:
             cache.max_size = cache.size + 2 * graphs.MAX_KEYS
 
     def accumulate(self, buf: np.ndarray) -> None:
-        data = np.concatenate([self._pending,
-                               np.asarray(buf, np.uint8).ravel()])
-        quantum = 2 * self.n_fft
-        usable = len(data) - (len(data) % quantum)
-        self._pending = data[usable:]
-        if usable:
+        block, self._pending, _ = graphs.split_residual(
+            self._pending, np.asarray(buf, np.uint8).ravel(), 2 * self.n_fft)
+        if graphs.width(block):
             self._hold_plans()
             captures = self.graphs.captures
-            (acc,), n_seg = self.graphs.advance((), [data[:usable]],
-                                                [self.state.acc])
+            (acc,), n_seg = self.graphs.advance((), [block], [self.state.acc])
             self.state = PsdState(acc, self.state.count + n_seg)
             if self.graphs.captures != captures and \
                     self.device.type == "cuda":

@@ -31,7 +31,7 @@ from tpu_sdr_torch.parallel import halo as H
 
 # Kernel launches per wrapper: the main path's proof that it ran the
 # kernels.  Only the wrappers' CUDA branches add to these.
-LAUNCHES = {"halo_pull": 0, "ring_shift": 0}
+LAUNCHES = kernels.launch_counter("halo_pull", "ring_shift")
 
 # Receiving shards one launch takes (kMaxShards in csrc/halo.cu).
 MAX_SHARDS = 32

@@ -41,7 +41,7 @@ from tpu_sdr_torch.utils.design import WbfmConfig
 
 # Kernel launches: the main path's proof that it ran the kernel.  Only the
 # wrapper's CUDA branch adds to it.
-LAUNCHES = {"shard_halo": 0}
+LAUNCHES = kernels.launch_counter("shard_halo")
 
 # Shards one launch takes (kMaxShards in csrc/shard_halo.cu).
 MAX_SHARDS = 32

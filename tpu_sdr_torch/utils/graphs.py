@@ -50,8 +50,8 @@ from the key alone (a next phase, an output count).
 
   An output of the graph lives in its memory pool only until the next
   call, so nothing but that copy reads it.
-* The launch counters of the kernels (``fused_fm``, ``fused_channelizer``,
-  ``cuda_halo``, ``shard_halo``) gain the captured step's launches at each
+* The launch counters of the kernel wrappers (registered in
+  ``tpu_sdr_torch.kernels``) gain the captured step's launches at each
   replay; capture itself adds none.
 * A streamer's graphs share one memory pool (``graph_pool_handle``); its
   cache holds the :data:`MAX_KEYS` most recently used keys.  Sharing is
@@ -90,6 +90,7 @@ from typing import Any, Callable, Hashable, Sequence
 import numpy as np
 import torch
 
+from tpu_sdr_torch import kernels
 from tpu_sdr_torch.utils import profiling
 
 MAX_KEYS = 8  # the graphs a streamer keeps, most recently used first
@@ -129,16 +130,6 @@ def _capture_stream(device: torch.device) -> torch.cuda.Stream:
     return _capture_streams[device]
 
 
-def _counters() -> tuple[dict, ...]:
-    """The launch counters of every kernel wrapper (imported here, not at
-    the top: those modules import the models that import this one)."""
-    from tpu_sdr_torch.ops import fused_channelizer, fused_fm
-    from tpu_sdr_torch.parallel import cuda_halo, shard_halo
-
-    return (fused_fm.LAUNCHES, fused_channelizer.LAUNCHES, cuda_halo.LAUNCHES,
-            shard_halo.LAUNCHES)
-
-
 def split_state(tree) -> tuple[tuple, list[torch.Tensor]]:
     """(host leaves, tensor leaves) of a tree of tuples and NamedTuples in
     field order: the host leaves go into a key, the tensors are carries."""
@@ -172,17 +163,41 @@ def join_state(tree, host: Sequence, tensors: Sequence[torch.Tensor]):
     return walk(tree)
 
 
-def split_residual(pending: np.ndarray, buf: np.ndarray, quantum: int
-                   ) -> tuple[tuple, np.ndarray, int]:
+def split_residual(pending, buf, quantum: int,
+                   device: torch.device | None = None) -> tuple[Any, Any, int]:
     """A streamer's read cut into whole quanta along the last axis:
-    (the pieces of the usable part, the new residual, the bytes copied).
+    (the usable part, the new residual, the bytes copied on the host).
 
-    The usable part is ``(pending, the head of buf)``, pieces for a
-    step's host input; the new residual is a copy of the tail of ``buf``
-    under one quantum, owned by the streamer (``buf`` may be read-only or
-    reused by its caller).  Where the residual and the read together hold
-    no whole quantum, they are joined, which is small.  No usable part
-    gives ``()``.  ``pending`` is under one quantum, as this leaves it."""
+    A numpy ``buf`` (or anything ``np.asarray`` takes, in ``pending``'s
+    dtype): the usable part is the pieces ``(pending, the head of buf)``,
+    a step's host input, or ``()``; the new residual is a copy of the tail
+    of ``buf`` under one quantum, owned by the streamer (``buf`` may be
+    read-only or reused by its caller).  Where the residual and the read
+    together hold no whole quantum, they are joined, which is small.  A
+    tensor ``buf`` (say, from ``BlockFeeder.device_blocks``) goes to
+    ``device`` and is joined there with one ``torch.cat`` only where a
+    residual leads it; the usable part and the residual are views of the
+    result.  A residual of the other kind is taken over.  ``buf``'s
+    leading axes must be the residual's rows."""
+    tensor = isinstance(buf, torch.Tensor)
+    if not tensor:
+        if isinstance(pending, torch.Tensor):
+            pending = pending.cpu().numpy()
+        buf = np.asarray(buf, dtype=pending.dtype)
+    if buf.shape[:-1] != pending.shape[:-1]:
+        raise ValueError(f"a read of shape {tuple(buf.shape)} does not "
+                         f"continue rows of shape {tuple(pending.shape[:-1])}")
+    if tensor:
+        if not isinstance(pending, torch.Tensor):
+            pending = torch.from_numpy(np.ascontiguousarray(pending))
+        data = buf = buf.to(buf.device if device is None else device)
+        copied = 0
+        if pending.shape[-1]:
+            data = torch.cat([pending.to(buf.device), buf], dim=-1)
+            if data.device.type == "cpu":
+                copied = data.nbytes
+        usable = data.shape[-1] - data.shape[-1] % quantum
+        return data[..., :usable], data[..., usable:], copied
     have = pending.shape[-1]
     total = have + buf.shape[-1]
     usable = total - total % quantum
@@ -194,6 +209,15 @@ def split_residual(pending: np.ndarray, buf: np.ndarray, quantum: int
         return (pending, buf), pending[..., :0], 0
     rest = buf[..., cut:].copy()
     return (pending, buf[..., :cut]), rest, rest.nbytes
+
+
+def width(block) -> int:
+    """The length along the last axis of a usable block from
+    :func:`split_residual` (a row's bytes for a u8 read): a tensor's or an
+    array's, or its pieces' together (``()`` holds none)."""
+    if isinstance(block, tuple):
+        return sum(p.shape[-1] for p in block)
+    return block.shape[-1]
 
 
 def _shape(x) -> tuple:
@@ -280,7 +304,8 @@ class _Entry:
     outs: list[torch.Tensor] = field(default_factory=list)  # device form
     aux: Any = None
     graph: torch.cuda.CUDAGraph | None = None
-    launches: list[dict] = field(default_factory=list)
+    # (a wrapper's counter, the launches a replay adds to it)
+    launches: list[tuple[dict, dict]] = field(default_factory=list)
     # recorded after the copies out of the staging buffers: the next
     # write into them waits on it
     fence: torch.cuda.Event | None = None
@@ -385,8 +410,8 @@ class StepGraphs:
             t1 = profiling.clock()
             if cuda:
                 entry.graph.replay()
-                for counter, step in zip(_counters(), entry.launches):
-                    for name, n in step.items():
+                for counter, launched in entry.launches:
+                    for name, n in launched.items():
                         counter[name] += n
                 packed = entry.packed
             else:
@@ -566,8 +591,7 @@ class StepGraphs:
         e.outs = []
         # the eager call has moved the carries on: capture the step that
         # takes them from here
-        counters = _counters()
-        before = [dict(c) for c in counters]
+        before = [(c, dict(c)) for c in kernels.LAUNCH_COUNTERS]
         graph = torch.cuda.CUDAGraph()
         # capture_begin/end rather than torch.cuda.graph, which would also
         # synchronize the device, collect garbage and empty the allocator's
@@ -593,9 +617,9 @@ class StepGraphs:
             if collecting:
                 gc.enable()
         # capture launches nothing: take its ticks back, keep them
-        e.launches = [{k: c[k] - b.get(k, 0) for k in c}
-                      for c, b in zip(counters, before)]
-        for c, b in zip(counters, before):
+        e.launches = [(c, {k: n - b[k] for k, n in c.items()})
+                      for c, b in before]
+        for c, b in before:
             c.update(b)
         if failure is not None:
             raise GraphCaptureError(
