@@ -78,22 +78,26 @@ def test_firdes_copy_is_equal(name, args):
 
 
 def test_f32_to_s16_is_bit_equal():
-    """Clip edges, steps of +-0.5 around integers, signed zero, and random
-    audio: the same bits as the JAX package's conversion and as its numpy
-    formula (C++ and numpy agree there)."""
-    scale = np.float32(0.9 * 32767.0)
-    k = np.arange(-40, 41, dtype=np.float32)
-    steps = np.concatenate([(k + 0.5) / scale, (k - 0.5) / scale, k / scale])
-    edges = np.array([1.0, -1.0, 1.1112, -1.1112, 2.0, -2.0, 32767.4 / scale,
-                      -32768.6 / scale, 0.0, -0.0], dtype=np.float32)
+    """Clip edges, steps of +-0.5 around integers and about both saturation
+    edges, signed zero, +-inf and random audio, at both scales: the same
+    bits as the JAX package's conversion and as its numpy formula (C++ and
+    numpy agree there)."""
     rng = np.random.default_rng(3)
-    x = np.concatenate([steps, edges, rng.uniform(-1.3, 1.3, 10_001)]
-                       ).astype(np.float32)
-    got = tnative.f32_to_s16(x)
-    assert got.dtype == np.int16
-    np.testing.assert_array_equal(got, jnative.f32_to_s16(x))
-    np.testing.assert_array_equal(
-        got, np.clip(x * (0.9 * 32767.0), -32768, 32767).astype(np.int16))
+    for scale in (np.float32(0.9 * 32767.0), np.float32(32767.0)):
+        k = np.concatenate([np.arange(-40, 41), [32766, 32767, 32768, -32767,
+                                                 -32768, -32769]])
+        steps = np.concatenate([(k + 0.5) / scale, (k - 0.5) / scale,
+                                k / scale])
+        edges = np.array([1.0, -1.0, 1.1112, -1.1112, 2.0, -2.0,
+                          32767.4 / scale, -32768.6 / scale, 0.0, -0.0,
+                          np.inf, -np.inf], dtype=np.float32)
+        x = np.concatenate([steps, edges, rng.uniform(-1.3, 1.3, 10_001)]
+                           ).astype(np.float32)
+        got = tnative.f32_to_s16(x, float(scale))
+        assert got.dtype == np.int16
+        np.testing.assert_array_equal(got, jnative.f32_to_s16(x, float(scale)))
+        np.testing.assert_array_equal(
+            got, np.clip(x * scale, -32768, 32767).astype(np.int16))
 
 
 def test_block_feeder_over_a_file_matches_jax(tmp_path):

@@ -8,8 +8,11 @@ fd, and a concurrent stress.  Part 2 holds each byte map, on the port's
 native path and on its numpy fallback, bit-equal to the JAX package's (and
 the fs/4 rotation to ``pallas_fm.host_rotate_fs4_u8``, phases 0-3), with
 one size contract for the rotation on both paths (the float unpack
-bit-equal to JAX's numpy formula, within 2**-23 of its C++).  Part 3: the loader
-rebuilds a stale library, and ``pop_into`` fills a torch buffer.  Inputs
+bit-equal to JAX's numpy formula, within 2**-23 of its C++); f32 -> s16 on
+each of its four paths, each call counted on the path it took.  Part 3: the
+loader rebuilds a stale library and reuses a good one, a build without the
+interpreter's headers or SSE2 converts through ctypes, and ``pop_into``
+fills a torch buffer.  Inputs
 are made from a seed with numpy; every comparison is exact (tolerance 0)
 but that one.
 """
@@ -27,6 +30,7 @@ import torch
 
 import tpu_sdr.native as jnative
 import tpu_sdr_torch.native as tnative
+import tpu_sdr_torch.native.io as tio
 from tpu_sdr.ops.pallas_fm import host_rotate_fs4_u8
 from tpu_sdr_torch.native import NativePump, NativeRing
 
@@ -238,15 +242,139 @@ def test_u8_iq_to_planar_f32_matches_jax(path, phase):
             np.testing.assert_allclose(g, w, rtol=0, atol=2.0 ** -23)
 
 
-def test_f32_to_s16_is_jax_bit_for_bit(path):
-    rng = np.random.default_rng(3)
-    x = np.concatenate([rng.uniform(-1.3, 1.3, 10_001),
-                        [0.0, -0.0, 1.0, -1.0, 2.0, -2.0]]).astype(np.float32)
-    for scale in (0.9 * 32767.0, 32767.0):
-        np.testing.assert_array_equal(tnative.f32_to_s16(x, scale),
-                                      jnative.f32_to_s16(x, scale))
+# f32 -> s16 has four paths: the native module's entry reading the input in
+# place, the entry after the wrapper copied the input, the loop through
+# ctypes (a build without the interpreter's headers) and numpy.
+
+S16_SCALES = (0.9 * 32767.0, 32767.0)
+S16_PATHS = ("entry", "copied", "ctypes", "numpy")
+# what each path adds to s16_calls() a call
+S16_MOVES = {"entry": {"entry": 1}, "copied": {"entry": 1, "copied": 1},
+             "ctypes": {"ctypes": 1}, "numpy": {"numpy": 1}}
+
+
+def _bind_s16(monkeypatch, path):
+    if path in ("entry", "copied"):
+        if tnative.module() is None:
+            pytest.skip("the runtime was built without the interpreter's "
+                        "headers: it has no entry")
+        monkeypatch.setattr(tio, "_s16", tnative.module().f32_to_s16)
+    else:
+        monkeypatch.setattr(tio, "_s16", getattr(tio, f"_s16_{path}"))
+
+
+@pytest.fixture(params=S16_PATHS)
+def s16_path(request, monkeypatch):
+    _bind_s16(monkeypatch, request.param)
+    return request.param
+
+
+def _s16_edges(scale: float) -> np.ndarray:
+    """+-inf, +-0.0, both saturation edges and the values next to them, and
+    steps of 0.5 LSB about -40..40 and about the edges, at ``scale``."""
+    s = np.float32(scale)
+    lsb = np.concatenate([np.float32([32767, -32768, 32768, -32769, 32766,
+                                      -32767]), np.arange(-40, 41)])
+    steps = (np.concatenate([lsb, lsb + 0.5, lsb - 0.5]) / s).astype(np.float32)
+    return np.concatenate([
+        np.float32([np.inf, -np.inf, 0.0, -0.0, 1.0, -1.0, 2.0, -2.0]),
+        steps, np.nextafter(steps, np.float32(np.inf)),
+        np.nextafter(steps, np.float32(-np.inf))]).astype(np.float32)
+
+
+def _s16_vector(n: int, scale: float, seed: int = 3) -> np.ndarray:
+    """n samples: the edges in order from the first lane (so that short
+    vectors hold +-inf and the saturation edges), every third random
+    audio past full scale."""
+    x = np.resize(_s16_edges(scale), n)
+    x[1::3] = np.random.default_rng(seed + n).uniform(-1.3, 1.3, x[1::3].size)
+    return x
+
+
+def _s16_formula(x: np.ndarray, scale: float) -> np.ndarray:
+    x = np.asarray(x, np.float32)
+    return np.clip(x * np.float32(scale), -32768, 32767).astype(np.int16)
+
+
+def _s16_counted(path: str, x, scale: float, calls: int = 1) -> np.ndarray:
+    """``f32_to_s16(x, scale)``, held to have taken ``path``."""
+    before = tio.s16_calls()
+    got = tnative.f32_to_s16(x, scale)
+    for _ in range(calls - 1):
+        tnative.f32_to_s16(x, scale)
+    after = tio.s16_calls()
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert moved == {k: v * calls for k, v in S16_MOVES[path].items()}
+    assert got.dtype == np.int16
+    return got
+
+
+@pytest.mark.parametrize("n", [*range(18), 1023, 1024, 1025, 4112, 8192])
+def test_f32_to_s16_is_jax_bit_for_bit(s16_path, n):
+    """Each path at lengths about the 8-wide body and its tail: the numpy
+    formula's bits and the JAX package's, at both scales.  The copied path
+    is handed float64 (each float32 exact in it)."""
+    for scale in S16_SCALES:
+        x = _s16_vector(n, scale)
+        shown = x.astype(np.float64) if s16_path == "copied" else x
+        got = _s16_counted(s16_path, shown, scale)
+        assert got.shape == (n,)
+        np.testing.assert_array_equal(got, _s16_formula(x, scale))
+        np.testing.assert_array_equal(got, jnative.f32_to_s16(x, scale))
     out = tnative.f32_to_s16(np.array([0.0, 2.0, -2.0], np.float32), 32767.0)
     assert list(out) == [0, 32767, -32768]
+
+
+@pytest.mark.parametrize("path", ["entry", "ctypes", "numpy"])
+@pytest.mark.parametrize("layout", ["rows", "unaligned", "strided", "float64",
+                                    "read_only"])
+def test_f32_to_s16_takes_every_layout(monkeypatch, path, layout):
+    """The rows of a C-contiguous (64, 1024) array (64 entry calls, none
+    copied), a row one float past an aligned start, and a strided, a float64
+    and a read-only input; the entry copies the strided and float64 ones
+    first.  Both scales, bit-equal to the numpy formula and to JAX."""
+    _bind_s16(monkeypatch, path)
+    copies = layout in ("strided", "float64")
+    for scale in S16_SCALES:
+        x = _s16_vector(64 * 1024 if layout == "rows" else 1025, scale)
+        if layout == "rows":
+            rows = x.reshape(64, 1024)
+            before = tio.s16_calls()
+            got = np.stack([tnative.f32_to_s16(r, scale) for r in rows])
+            after = tio.s16_calls()
+            assert after[path] - before[path] == 64
+            assert after["copied"] == before["copied"]
+            np.testing.assert_array_equal(got, _s16_formula(rows, scale))
+            np.testing.assert_array_equal(
+                got, np.stack([jnative.f32_to_s16(r, scale) for r in rows]))
+            continue
+        if layout == "unaligned":
+            shown = np.empty(x.size + 1, np.float32)[1:]
+            shown[:] = x
+            assert shown.ctypes.data % 16
+        elif layout == "strided":
+            shown = np.empty((x.size, 3), np.float32)[:, 1]
+            shown[:] = x
+        elif layout == "float64":
+            shown = x.astype(np.float64)
+        else:
+            shown = x.copy()
+            shown.setflags(write=False)
+        got = _s16_counted("copied" if copies and path == "entry" else path,
+                           shown, scale)
+        np.testing.assert_array_equal(got, _s16_formula(x, scale))
+        np.testing.assert_array_equal(got, jnative.f32_to_s16(x, scale))
+
+
+@pytest.mark.parametrize("path", ["entry", "ctypes"])
+def test_f32_to_s16_gives_nan_zero_in_every_lane(monkeypatch, path):
+    """NaN is masked to 0 in the 8-wide body, as the scalar tail's cast
+    gives it, so no sample's value depends on its lane."""
+    _bind_s16(monkeypatch, path)
+    x = np.full(19, np.nan, np.float32)
+    x[::4] = 0.5
+    got = tnative.f32_to_s16(x, 32767.0)
+    assert list(got[1::4]) == [0] * 5 and list(got[::4]) == [16383] * 5
 
 
 def test_count_pattern_breaks_is_jax_bit_for_bit(path):
@@ -276,6 +404,7 @@ def test_parse_tcp_commands_is_jax_bit_for_bit(path):
 def _fresh_loader(monkeypatch, tmp_path):
     monkeypatch.setattr(tnative, "BUILD_DIR", str(tmp_path))
     monkeypatch.setattr(tnative, "_lib", None)
+    monkeypatch.setattr(tnative, "_module", None)
     monkeypatch.setattr(tnative, "_tried", False)
     return tnative.library_path()
 
@@ -312,16 +441,64 @@ def test_stale_library_is_rebuilt(monkeypatch, tmp_path, stale):
 
 
 def test_no_native_env_and_a_reused_build(monkeypatch, tmp_path):
+    """A second load reuses the build, and its entry, without rebuilding."""
     path = _fresh_loader(monkeypatch, tmp_path)
     monkeypatch.setenv("TPU_SDR_NO_NATIVE", "1")
     assert tnative.load() is None and not tnative.available()
     monkeypatch.delenv("TPU_SDR_NO_NATIVE")
     monkeypatch.setattr(tnative, "_tried", False)
     assert tnative.load() is not None and os.path.exists(path)
+    built = os.stat(path).st_mtime_ns
     monkeypatch.setattr(tnative, "_lib", None)
+    monkeypatch.setattr(tnative, "_module", None)
     monkeypatch.setattr(tnative, "_tried", False)
     monkeypatch.setattr(tnative, "build_seconds", 0.0)
     assert _works(tnative.load()) and tnative.build_seconds == 0.0
+    assert os.stat(path).st_mtime_ns == built
+    assert os.listdir(tmp_path) == [os.path.basename(path)]
+    if "-DTSDR_PYTHON" in tnative.CXX_FLAGS:
+        monkeypatch.setattr(tio, "_s16", tio._bind_s16)
+        x = _s16_vector(1025, 32767.0)
+        got = _s16_counted("entry", x, 32767.0)
+        np.testing.assert_array_equal(got, _s16_formula(x, 32767.0))
+
+
+def test_no_native_env_counts_numpy_calls_only(monkeypatch, tmp_path):
+    """With ``TPU_SDR_NO_NATIVE`` set, f32_to_s16 binds numpy: only the
+    numpy count moves, and nothing is built."""
+    module = tnative.module()
+    counts = module.s16_counts() if module is not None else None
+    _fresh_loader(monkeypatch, tmp_path)
+    monkeypatch.setenv("TPU_SDR_NO_NATIVE", "1")
+    monkeypatch.setattr(tio, "_s16", tio._bind_s16)
+    x = _s16_vector(1024, 0.9 * 32767.0)
+    got = _s16_counted("numpy", x, 0.9 * 32767.0, calls=3)
+    np.testing.assert_array_equal(got, _s16_formula(x, 0.9 * 32767.0))
+    assert tio._s16 is tio._s16_numpy and not os.listdir(tmp_path)
+    if module is not None:
+        assert module.s16_counts() == counts
+
+
+def test_without_the_interpreters_headers_or_sse2(monkeypatch, tmp_path):
+    """Without the interpreter's headers the build has no CPython module
+    and f32_to_s16 binds the loop through ctypes; with ``__SSE2__``
+    undefined that loop is the scalar one alone.  The same bits."""
+    monkeypatch.setattr(tnative.sysconfig, "get_path",
+                        lambda name: str(tmp_path))
+    assert tnative._python_flags() == ()
+    base = tuple(f for f in tnative.CXX_FLAGS
+                 if f != "-DTSDR_PYTHON" and not f.startswith("-I"))
+    monkeypatch.setattr(tnative, "CXX_FLAGS", base + ("-U__SSE2__",))
+    _fresh_loader(monkeypatch, tmp_path)
+    monkeypatch.setattr(tio, "_s16", tio._bind_s16)
+    assert tnative.available() and tnative.module() is None
+    for n in (0, 7, 8, 17, 1025):
+        for scale in S16_SCALES:
+            x = _s16_vector(n, scale)
+            got = _s16_counted("ctypes", x, scale)
+            np.testing.assert_array_equal(got, _s16_formula(x, scale))
+            np.testing.assert_array_equal(got, jnative.f32_to_s16(x, scale))
+    assert tio._s16 is tio._s16_ctypes
 
 
 def test_pop_into_a_torch_buffer():

@@ -15,6 +15,12 @@ own (``<name>.tmp<pid>``), loads it under that name and renames it into
 place, so concurrent processes (``pytest -n``) never load half a library
 and never reuse a stale handle of the same name.
 
+Where the interpreter's headers are found, the same build is also the
+CPython module ``_tpusdr_io`` (loaded from the same file, bound once a
+load): its ``f32_to_s16`` reads a numpy array through the buffer protocol,
+with no ctypes in the call.  Without them the library is built as before
+and ``f32_to_s16`` calls the loop through ctypes.
+
 Every entry point of :mod:`tpu_sdr_torch.native.io` has a numpy fallback:
 ``available()`` is False without ``g++`` or with ``TPU_SDR_NO_NATIVE`` set.
 """
@@ -23,22 +29,38 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib.machinery
+import importlib.util
 import os
 import shutil
 import subprocess
+import sysconfig
 import threading
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(_PKG, "csrc", "tpusdr_io.cpp")
 BUILD_DIR = os.path.join(_PKG, "_build")
+MODULE = "_tpusdr_io"  # the CPython module's name (PyInit__tpusdr_io)
+
+
+def _python_flags() -> tuple[str, ...]:
+    """The flags that build the CPython module too: none where the
+    interpreter's headers are missing."""
+    include = sysconfig.get_path("include")
+    if not os.path.exists(os.path.join(include, "Python.h")):
+        return ()
+    return ("-DTSDR_PYTHON", f"-I{include}")
+
+
 # -ffp-contract=off: no fused multiply-adds, so the float map rounds as the
 # numpy fallback does on every machine (-march=native would contract it)
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-shared",
-             "-ffp-contract=off")
+             "-ffp-contract=off", *_python_flags())
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_module = None  # the CPython module of the loaded build, or None
 _tried = False
 build_seconds = 0.0  # the build this process ran; 0.0 when one was reused
 
@@ -101,45 +123,61 @@ def _declare(lib: ctypes.CDLL) -> None:
         c.c_void_p, c.c_size_t, c.c_void_p, c.c_void_p, c.c_size_t]
 
 
-def _open(path: str) -> ctypes.CDLL:
+def _open(path: str):
+    """The library at ``path`` through ctypes, and its CPython module where
+    the build has one.  AttributeError when an entry point is missing,
+    ImportError when the module is."""
     lib = ctypes.CDLL(path)
-    _declare(lib)  # AttributeError when an entry point is missing
-    return lib
+    _declare(lib)
+    if "-DTSDR_PYTHON" not in CXX_FLAGS:
+        return lib, None
+    loader = importlib.machinery.ExtensionFileLoader(MODULE, path)
+    module = importlib.util.module_from_spec(
+        importlib.util.spec_from_file_location(MODULE, path, loader=loader))
+    loader.exec_module(module)
+    return lib, module
 
 
-def _load_or_build() -> ctypes.CDLL | None:
+def _load_or_build():
     path = library_path()
     if os.path.exists(path):
         try:
             return _open(path)
-        except (OSError, AttributeError):
+        except (OSError, AttributeError, ImportError):
             pass  # incomplete or foreign: build anew below
     tmp = _build(path)
     if tmp is None:
-        return None
+        return None, None
     try:
-        lib = _open(tmp)
-    except (OSError, AttributeError):
+        bound = _open(tmp)
+    except (OSError, AttributeError, ImportError):
         os.remove(tmp)
-        return None
+        return None, None
     os.replace(tmp, path)
-    return lib
+    return bound
 
 
 def load() -> ctypes.CDLL | None:
     """The bound native library, built on first use; None when it cannot
     be built or ``TPU_SDR_NO_NATIVE`` is set."""
-    global _lib, _tried
+    global _lib, _module, _tried
     with _lock:
         if _lib is None and not _tried:
             _tried = True
             if not os.environ.get("TPU_SDR_NO_NATIVE"):
-                _lib = _load_or_build()
+                _lib, _module = _load_or_build()
         return _lib
 
 
 def available() -> bool:
     return load() is not None
+
+
+def module():
+    """The loaded build's CPython module (``f32_to_s16``, ``s16_counts``);
+    None where the native library is not available or was built without
+    the interpreter's headers."""
+    return _module if available() else None
 
 
 from tpu_sdr_torch.native.io import (  # noqa: E402,F401

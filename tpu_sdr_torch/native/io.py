@@ -179,14 +179,56 @@ def rotate_fs4_u8(iq: np.ndarray, phase: int = 0) -> np.ndarray:
 
 def f32_to_s16(x: np.ndarray, scale: float = 0.9 * 32767.0) -> np.ndarray:
     """f32 audio -> clamped s16 PCM: scaled in float32, clamped to
-    [-32768, 32767] and truncated toward zero on both paths."""
+    [-32768, 32767] and truncated toward zero on every path.  A C-contiguous
+    float32 input is read in place by the native module's entry; any other
+    is copied to one first."""
+    out = _s16(x, scale)
+    if out is None:  # the entry takes C-contiguous float32 buffers only
+        out = _s16(np.ascontiguousarray(x, dtype=np.float32), scale)
+    return out
+
+
+def _s16_ctypes(x: np.ndarray, scale: float) -> np.ndarray:
+    """The loop through ctypes, for a build without the CPython module."""
+    _S16_CALLS["ctypes"] += 1
     x = np.ascontiguousarray(x, dtype=np.float32)
-    if _native.available():
-        out = np.empty(x.size, dtype=np.int16)
-        _lib().tsdr_f32_to_s16(x.ctypes.data, x.size, ctypes.c_float(scale),
-                               out.ctypes.data)
-        return out
+    out = np.empty(x.size, dtype=np.int16)
+    _lib().tsdr_f32_to_s16(x.ctypes.data, x.size, ctypes.c_float(scale),
+                           out.ctypes.data)
+    return out
+
+
+def _s16_numpy(x: np.ndarray, scale: float) -> np.ndarray:
+    _S16_CALLS["numpy"] += 1
+    x = np.ascontiguousarray(x, dtype=np.float32)
     return np.clip(x * np.float32(scale), -32768, 32767).astype(np.int16)
+
+
+def _bind_s16(x: np.ndarray, scale: float) -> np.ndarray | None:
+    """The first call: binds the conversion to the native module's entry,
+    else to the loop through ctypes, else to numpy, and converts ``x``."""
+    global _s16
+    module = _native.module()
+    if module is not None:
+        _s16 = module.f32_to_s16
+    else:
+        _s16 = _s16_ctypes if _native.available() else _s16_numpy
+    return _s16(x, scale)
+
+
+_s16 = _bind_s16
+_S16_CALLS = {"ctypes": 0, "numpy": 0}
+
+
+def s16_calls() -> dict[str, int]:
+    """Calls of :func:`f32_to_s16` by the path each took: ``entry``, through
+    the native module's entry (each of a library load's calls); ``copied``,
+    calls whose input the entry refused and the wrapper copied first (each
+    then also one ``entry`` call); ``ctypes``, the loop through ctypes;
+    ``numpy``, the fallback."""
+    module = _native.module()
+    entry, copied = module.s16_counts() if module is not None else (0, 0)
+    return {"entry": entry, "copied": copied, **_S16_CALLS}
 
 
 def count_pattern_breaks(buf: np.ndarray, last: int = -1) -> tuple[int, int]:
