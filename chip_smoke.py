@@ -20,7 +20,10 @@ the ported paths through their user entry points:
 * wideband: K3 (``pfb_channelize``) against its plain version on a 25 MB
   block of an 8-station capture at 10.88 Msps (all 64 channels and the
   16-channel window from channel 16) and against the float64 PFB on its
-  first 8,192 frames, then ``tpu_sdr_torch.apps.multi_fm --fused``
+  first 8,192 frames; K3's direct DFT at the 1024-channel bank's read
+  (5,440 frames; all 1,024 columns and the 256 from column 768) against
+  its plain version and the float64 PFB; then
+  ``tpu_sdr_torch.apps.multi_fm --fused``
   on 1.024 s of it, against the plain front,
   and the channel-parallel K3 bank on 4 logical shards of the card (a
   graphed call; then graphed against ``graphs.disabled()``, below);
@@ -158,6 +161,8 @@ WB_PATH_READS = 32           # x 696,320 bytes = 1.024 s at 10.88 Msps
 WB_READ_BYTES = 696_320
 SNR_STATION_DB = 25.0        # tests/test_wideband.py's bar
 PFB64_FRAMES = 8_192         # K3 against the float64 PFB on these frames
+BANK_K = 1_024               # the 1024-channel bank (wbfm_bank1024)
+BANK_FRAMES = 5_440          # its multi_fm read: 11,141,120 bytes
 SNR_PFB64_DB = 130.0         # f32 FIR + FFT against the exact PFB
 SNR_FRONTS_DB = 70.0         # fused vs plain front, tests/test_wideband.py
 
@@ -389,6 +394,59 @@ def pfb_float64(data, carry, h_poly, spec, frames: int):
     return torch.cat([y.real, y.imag], dim=1).cpu().numpy()
 
 
+def bank1024_k3(dev) -> dict:
+    """K3's direct DFT at the 1024-channel bank's read (``multi_fm``'s
+    11,141,120 bytes, 5,440 frames) after a mid-stream carry: all 1,024
+    columns and the window of 256 from column 768, each against the plain
+    version (>= SNR_KERNEL_DB, carry equal), and all 1,024 against the
+    float64 PFB (>= SNR_PFB64_DB).  Returns the SNRs."""
+    import torch
+
+    from tpu_sdr_torch.ops import fused_channelizer as FC
+    from tpu_sdr_torch.utils import design
+
+    K, frames = BANK_K, BANK_FRAMES
+    h = design.design_pfb(K, 8, cutoff_frac=0.95)
+    spec = FC.PfbSpec(K, 9, 680)
+    taps = FC.kernel_taps(h).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(1024)
+    data = torch.randint(0, 256, (2 * K * frames,), dtype=torch.uint8,
+                         device=dev, generator=gen)
+    warm = torch.randint(0, 256, (spec.chunk_bytes,), dtype=torch.uint8,
+                         device=dev, generator=gen)
+    _, carry = FC.channelize_reference(warm, FC.init_carry(spec, dev),
+                                       FC.kernel_matrix(h).to(dev), spec)
+    snrs = {}
+    for local, c0 in ((None, 0), (256, 768)):
+        sp = spec._replace(local_channels=local)
+        Ko = sp.out_channels
+        m2 = FC.kernel_matrix(h, slice(c0, c0 + Ko)).to(dev)
+        y_re, y_im, c_k = FC.channelize(data, carry, taps, sp,
+                                        channel_offset=c0)
+        y_r, c_r = FC.channelize_reference(data, carry, m2, sp)
+        torch.cuda.synchronize()
+        y_k = torch.cat([y_re, y_im], dim=1)
+        require(y_k.shape == (frames, 2 * Ko),
+                f"pfb_channelize K={K}: output of shape {tuple(y_k.shape)}")
+        s = snr_db(y_r.cpu().numpy(), y_k.cpu().numpy())
+        require(s >= SNR_KERNEL_DB, f"pfb_channelize K={K} Ko={Ko} c0={c0}: "
+                f"{s:.1f} dB < {SNR_KERNEL_DB}")
+        require(torch.equal(c_k, c_r), f"pfb_channelize K={K}: carry differs")
+        snrs[f"k{K}_ko{Ko}"] = s
+        print(f"pfb_channelize K={K} Ko={Ko} c0={c0}, {frames} frames: "
+              f"{s:.1f} dB vs plain, carry equal", flush=True)
+        if local is None:
+            s64 = snr_db(pfb_float64(data, carry,
+                                     torch.from_numpy(h).to(dev), spec,
+                                     frames), y_k.cpu().numpy())
+            require(s64 >= SNR_PFB64_DB, f"pfb_channelize K={K} vs float64 "
+                    f"PFB: {s64:.1f} dB < {SNR_PFB64_DB}")
+            snrs[f"k{K}_float64"] = s64
+            print(f"pfb_channelize K={K} vs the float64 PFB on {frames} "
+                  f"frames: {s64:.1f} dB", flush=True)
+    return snrs
+
+
 def wideband(dev, flush, smi: str) -> dict:
     """The wideband path: (a) K3 against its plain version on the 25 MB
     block, (b) ``multi_fm --fused`` on 1.024 s of 8 stations against the
@@ -458,6 +516,7 @@ def wideband(dev, flush, smi: str) -> dict:
             print(f"pfb_channelize vs the float64 PFB on the first "
                   f"{PFB64_FRAMES} frames: {s64:.1f} dB", flush=True)
     del y_re, y_im, y_k, y_r
+    snrs.update(bank1024_k3(dev))
 
     # the channel-parallel bank: K3 with the full taps and a 16-channel
     # window (c0 = 16 i) on each of 4 logical shards of the card, against

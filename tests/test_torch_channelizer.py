@@ -222,6 +222,30 @@ def test_spec_rejects_what_the_jax_spec_rejects():
     assert FC.PfbSpec(64, 9, 680, 16).out_channels == 16
 
 
+def test_spec_admits_the_1024_channel_bank_and_keeps_k3s_limits():
+    """The port's spec admits what K3 computes, all 1,024 output columns
+    of the 1024-channel bank, which the JAX spec refuses (2*Ko packed
+    lanes of one TPU matmul); odd K and more columns than K stay refused,
+    and so do the streamer's chunk conditions."""
+    from tpu_sdr_torch.models import wbfm_wideband as WB
+
+    config = WB.WidebandConfig(num_channels=1024, channels=tuple(range(1024)))
+    spec = WB.fused_spec(config)
+    assert spec == FC.PfbSpec(1024, 9, 680)
+    assert spec.out_channels == 1024 and spec.chunk_bytes == 1_392_640
+    with pytest.raises(AssertionError, match="packed lanes"):
+        pc.PallasPfbSpec(1024, 9, 680).validate()
+    FC.PfbSpec(1024, 9, 680, 256).validate()
+    with pytest.raises(ValueError, match="must be even"):
+        FC.PfbSpec(1023, 9, 680).validate()
+    with pytest.raises(ValueError, match="output channels"):
+        FC.PfbSpec(64, 9, 680, 128).validate()
+    with pytest.raises(ValueError, match="multiple of 8"):
+        FC.PfbSpec(1024, 9, 684).validate()
+    with pytest.raises(ValueError, match="history longer"):
+        FC.PfbSpec(1024, 18, 8).validate()
+
+
 @pytest.mark.parametrize("nbytes", [0, 2 * K + 2, 2 * K * 3 - 1])
 def test_channelize_rejects_partial_frames(nbytes):
     spec = FC.default_spec(K, T, C)

@@ -278,7 +278,9 @@ def test_pfb_channelize_kernel_short_calls(dev, frames):
     (64, 16, 16, 8_459, 0),     # no whole number of 16-frame tiles
     (64, 14, 50, 4_000, 2),     # 2-byte aligned input, an unaligned window
     (32, None, 0, 1_000, 0),    # the direct-DFT path
-    (32, 8, 8, 3, 0)])
+    (32, 8, 8, 3, 0),
+    (1024, None, 0, 5_440, 0),  # the 1024-channel bank's multi_fm read
+    (1024, 256, 768, 680, 0)])  # its last 256 columns, one chunk
 def test_pfb_channelize_kernel_windows_and_shapes(dev, K, local, c0, frames,
                                                   offset):
     """K3 at other column windows, frame counts, alignments and K, against
@@ -351,6 +353,48 @@ def test_cuda_wideband_streamer_matches_plain(wideband_capture, dev):
     plain = WB.WidebandStreamer(config, device=dev).demodulate(wideband_capture)
     assert _snr_db(plain, fused) >= 70.0
     assert synth.tone_snr(fused[0], 1_000.0, 32_000, skip=400) >= 25.0
+
+
+def test_cuda_wideband_streamer_at_1024_channels(dev):
+    """The 1024-channel bank on the card with every channel demodulated,
+    fed multi_fm's 11,141,120-byte reads of a capture with a station in
+    each channel (``sdrbench``'s ``wbfm_bank1024``): K3's direct path, the
+    tail at 1,024 stations, one graph replay a read; every station's s16
+    within the configuration's limits of the float64 reference
+    (``sdrbench/reference/dsp.py``)."""
+    import json
+    import os
+
+    from sdrbench import capture
+    from sdrbench.reference import dsp
+    from tpu_sdr_torch.native import f32_to_s16
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "sdrbench", "configs",
+                           "wbfm_bank1024.json")) as f:
+        cfg = json.load(f)
+    read = 64 * 1024 * 85 * 2
+    plan = capture.plan(cfg, {"read_bytes": read, "ring_reads": 2,
+                              "rds": False, "tones": 3,
+                              "audio_hz": [50, 15000], "deviation_hz": 75000,
+                              "noise_std": 0.004}, 2**31 + 23)
+    ring = capture.synthesize(plan, dev).cpu().numpy()
+    config = WB.WidebandConfig(num_channels=1024, channels=tuple(range(1024)))
+    assert cfg["channels"] == list(config.channels)
+    FC.reset_launch_counts()
+    streamer = WB.WidebandStreamer(config, use_fused=True, device=dev)
+    reads = [streamer.demodulate(ring[i * read:(i + 1) * read])
+             for i in range(2)]
+    assert FC.LAUNCHES["pfb_channelize"] == 2
+    assert streamer.graphs.captures == 1 and streamer.graphs.replays == 1
+    assert reads[0].shape == (1024, 1024)
+    pcm = np.stack([np.concatenate([f32_to_s16(r[s]) for r in reads])
+                    for s in range(1024)]).astype(np.int64)
+    ref = dsp.audio_s16(cfg, ring, 0, device=dev).astype(np.int64)
+    assert pcm.shape == ref.shape
+    d = pcm - ref
+    assert np.abs(d).max() <= cfg["limits"]["audio_gap_lsb"]
+    assert np.sqrt((d * d).mean(axis=1)).max() <= cfg["limits"]["audio_rms_lsb"]
 
 
 # ---- K4 and K5: the halo exchange and the ring shift ----------------------

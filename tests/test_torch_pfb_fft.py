@@ -8,10 +8,11 @@ R-tap branch FIR, and at K = 64 the radix-8 x 8 FFT (the same 4 + 4 + 2
 butterflies, the twiddle table ``fused_channelizer.twiddles`` with its
 folded 1/255, the lanes' butterfly transpose as ``__shfl_xor_sync`` does
 it, the output digit order k = j + 8*k2), at other K the direct DFT in the
-kernel's summation order; then the column window [c0, c0 + Ko).  The
-oracles: K3's plain version ``channelize_reference`` (the TPU kernel's
-split-bf16 M2) and the interpreted Pallas kernel at >=100 dB, and a
-float64 numpy PFB at >=130 dB.  The kernel itself against the plain
+kernel's summation order (16 partial sums, added pairwise); then the
+column window [c0, c0 + Ko).  The oracles: K3's plain version
+``channelize_reference`` (the TPU kernel's split-bf16 M2) and the
+interpreted Pallas kernel at >=100 dB, and a float64 numpy PFB at
+>=130 dB.  The kernel itself against the plain
 version is in tests/test_torch_cuda.py.
 """
 
@@ -29,6 +30,7 @@ torch.set_num_threads(1)
 T, C = 8, 64
 SMS = 132            # the H100's SMs, for the tile choice
 RSQRT2 = np.float32(0.70710678118654752)
+SUMS = 16            # the direct DFT's partial sums a column
 
 
 def _snr_db(ref, got):
@@ -103,16 +105,35 @@ def _fft64(fr, fi, tw):
 
 
 def _direct_dft(fr, fi, tw, cols):
+    """Each column's K-term sum in ``SUMS`` partial sums, branch p into
+    sum p mod SUMS, added pairwise at the end.  Branches past K are zeros,
+    which leave a sum as it is, where the kernel skips them.  A block of
+    frames at a time, so that the sums stay in the cache."""
     K = fr.shape[-1]
-    k = torch.as_tensor(cols)
-    re = torch.zeros(*fr.shape[:-1], len(cols))
-    im = torch.zeros_like(re)
-    for p in range(K):
-        w = tw[(p * k) % K]
-        x_r, x_i = fr[..., p:p + 1], fi[..., p:p + 1]
-        re = x_r * w[:, 0] + (-x_i * w[:, 1] + re)
-        im = x_r * w[:, 1] + (x_i * w[:, 0] + im)
-    return re, im
+    lead = fr.shape[:-1]
+    pad = -K % SUMS
+    fr = torch.nn.functional.pad(fr.reshape(-1, K), (0, pad))[:, None]
+    fi = torch.nn.functional.pad(fi.reshape(-1, K), (0, pad))[:, None]
+    k = torch.as_tensor(cols)[:, None]
+    tws = [tw[((p0 + torch.arange(SUMS)) * k) % K].unbind(-1)
+           for p0 in range(0, K, SUMS)]          # (cols, SUMS) re, im
+    out_r = torch.empty(fr.shape[0], len(cols))
+    out_i = torch.empty_like(out_r)
+    for b in range(0, fr.shape[0], 32):
+        re = torch.zeros(min(32, fr.shape[0] - b), len(cols), SUMS)
+        im = torch.zeros_like(re)
+        for p0, (w_r, w_i) in zip(range(0, K, SUMS), tws):
+            x_r = fr[b:b + 32, :, p0:p0 + SUMS]
+            x_i = fi[b:b + 32, :, p0:p0 + SUMS]
+            re.add_(-x_i * w_i).add_(x_r * w_r)
+            im.add_(x_i * w_r).add_(x_r * w_i)
+        s = SUMS // 2
+        while s:
+            re = re[..., :s] + re[..., s:2 * s]
+            im = im[..., :s] + im[..., s:2 * s]
+            s //= 2
+        out_r[b:b + 32], out_i[b:b + 32] = re[..., 0], im[..., 0]
+    return out_r.reshape(*lead, -1), out_i.reshape(*lead, -1)
 
 
 def emulate(data_u8, carry, taps, spec, c0=0):
@@ -285,3 +306,62 @@ def test_transpose8_is_a_transpose():
     out = _transpose8([(v[:, i], -v[:, i]) for i in range(8)])
     got = torch.stack([out[i][0] for i in range(8)], dim=1)
     assert torch.equal(got, v.T)
+
+
+# ---- K = 1024: the direct DFT of the 1024-channel bank ------------------
+
+BANK_K, BANK_C = 1024, 680   # the bank's width, one chunk of its streamer
+
+
+@pytest.mark.parametrize("Ko,c0", [(None, 0), (256, 768)])
+def test_direct_path_at_1024_channels(Ko, c0):
+    """The direct DFT at K = 1024 over one 680-frame chunk, all 1,024
+    columns and the last 256-column window: against the float64 PFB
+    (>=130 dB) and the plain version (>=100 dB, carry equal)."""
+    spec = FC.PfbSpec(BANK_K, T + 1, BANK_C, Ko)
+    spec.validate()
+    ko = spec.out_channels
+    buf, carry = _inputs(BANK_K, BANK_C, seed=BANK_K + c0)
+    h = design.design_pfb(BANK_K, T, cutoff_frac=0.95)
+    data, c = torch.from_numpy(buf), torch.from_numpy(carry)
+    y, new = emulate(data, c, FC.kernel_taps(h), spec, c0)
+    assert y.shape == (BANK_C, 2 * ko)
+    snr = _snr_db(pfb64(buf, carry, h, spec, c0), _complex(y, ko))
+    assert snr >= 130.0, f"emulation vs float64 PFB: {snr:.1f} dB"
+    y_ref, c_ref = FC.channelize_reference(
+        data, c, FC.kernel_matrix(h, slice(c0, c0 + ko)), spec)
+    snr = _snr_db(_complex(y_ref, ko), _complex(y, ko))
+    assert snr >= 100.0, f"emulation vs plain version: {snr:.1f} dB"
+    assert torch.equal(new, c_ref)
+
+
+def test_direct_path_at_1024_channels_matches_pallas():
+    """The 256-column window from column 768, the widest the JAX spec
+    admits at K = 1024, against the interpreted Pallas kernel."""
+    Ko, c0 = 256, 768
+    spec = FC.PfbSpec(BANK_K, T + 1, BANK_C, Ko)
+    buf, carry = _inputs(BANK_K, BANK_C, seed=7 * BANK_K)
+    h = design.design_pfb(BANK_K, T)
+    jspec = pc.PallasPfbSpec(BANK_K, T + 1, BANK_C, Ko)
+    jspec.validate()
+    jhi, jlo = pc.make_packed_matrices(h, channel_slice=slice(c0, c0 + Ko))
+    jr, ji, jcarry = pc.channelize_fused(
+        jnp.asarray(pc.view_u8_as_i16(buf, jspec)), jnp.asarray(carry), jhi,
+        jlo, jspec, interpret=True)
+    y, new = emulate(torch.from_numpy(buf), torch.from_numpy(carry),
+                     FC.kernel_taps(h), spec, c0)
+    snr = _snr_db(np.asarray(jr) + 1j * np.asarray(ji), _complex(y, Ko))
+    assert snr >= 100.0, f"emulation vs Pallas: {snr:.1f} dB"
+    np.testing.assert_array_equal(new.numpy(), np.asarray(jcarry))
+
+
+def test_only_the_jax_spec_keeps_the_lane_limit():
+    """The one deliberate difference between the two specs: the JAX spec
+    refuses more than 256 output columns (2*Ko packed lanes of one TPU
+    matmul), the port's admits all 1,024 of the bank, which K3 computes."""
+    with pytest.raises(AssertionError, match="packed lanes"):
+        pc.PallasPfbSpec(BANK_K, T + 1, BANK_C).validate()
+    FC.PfbSpec(BANK_K, T + 1, BANK_C).validate()
+    for Ko in (16, 256):
+        pc.PallasPfbSpec(BANK_K, T + 1, BANK_C, Ko).validate()
+        FC.PfbSpec(BANK_K, T + 1, BANK_C, Ko).validate()

@@ -287,3 +287,95 @@ print("JAX_LOADED", "jax" in sys.modules)
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "JAX_LOADED False" in proc.stdout, proc.stdout + proc.stderr
+
+
+# ---- the 1024-channel bank ---------------------------------------------------
+
+def _bank_config() -> dict:
+    import json
+
+    with open(os.path.join(ROOT, "sdrbench", "configs",
+                           "wbfm_bank1024.json")) as f:
+        return json.load(f)
+
+
+def test_fused_streamer_at_1024_channels_against_the_plain_reference():
+    """The 1024-channel bank (the benchmark's ``wbfm_bank1024``), designed
+    from its configuration, on a capture drawn from a seed with stations in
+    six of its channels (the edges, the middle; all 1,024 are the card's
+    work): two reads of one 680-frame chunk each through K3's plain
+    version and the tail, every station's s16 within the configuration's
+    limits of ``sdrbench/reference/dsp.py``'s float64 receiver."""
+    from sdrbench import capture
+    from sdrbench.reference import dsp
+    from tpu_sdr_torch.native import f32_to_s16
+
+    cfg = dict(_bank_config(), channels=[0, 1, 511, 512, 767, 1023])
+    chunk = 2 * 1024 * 680
+    traffic = {"read_bytes": chunk, "ring_reads": 2, "rds": False, "tones": 3,
+               "audio_hz": [50, 15000], "deviation_hz": 75000,
+               "noise_std": 0.004}
+    plan = capture.plan(cfg, traffic, 2**31 + 17)
+    ring = capture.synthesize(plan, CPU).numpy()
+    config = WB.WidebandConfig(
+        num_channels=cfg["num_channels"],
+        taps_per_branch=cfg["taps_per_branch"],
+        pfb_cutoff_frac=cfg["pfb_cutoff_frac"],
+        channels=tuple(cfg["channels"]), channel_rate=cfg["channel_rate"],
+        rate_resample=cfg["rate_resample"],
+        resample_taps_per_phase=cfg["resample_taps_per_phase"],
+        resample_cutoff_frac=cfg["resample_cutoff_frac"])
+    streamer = WB.WidebandStreamer(config, use_fused=True, device=CPU)
+    reads = [streamer.demodulate(ring[i * chunk:(i + 1) * chunk])
+             for i in range(2)]
+    pcm = np.stack([np.concatenate([f32_to_s16(r[s]) for r in reads])
+                    for s in range(len(cfg["channels"]))]).astype(np.int64)
+    ref = dsp.audio_s16(cfg, ring, 0).astype(np.int64)
+    assert pcm.shape == ref.shape == (6, 2 * 680 // 85 * 16)
+    d = pcm - ref
+    assert np.abs(d).max() <= cfg["limits"]["audio_gap_lsb"]
+    assert np.sqrt((d * d).mean(axis=1)).max() <= cfg["limits"]["audio_rms_lsb"]
+    assert np.abs(ref).max() > 10_000      # the stations are there
+
+
+def _multi_fm_with_open_files(tmp_path, soft, hard, stations):
+    """multi_fm in a process of its own whose limit of open files is
+    (soft, hard), writing ``stations`` files of a 128-channel bank."""
+    K = 128
+    path = tmp_path / "bank.u8"
+    np.random.default_rng(5).integers(
+        0, 256, 2 * K * 680, dtype=np.uint8).tofile(path)
+    code = f"""
+import resource, sys
+resource.setrlimit(resource.RLIMIT_NOFILE, ({soft}, {hard}))
+from tpu_sdr_torch.apps import multi_fm
+sys.exit(multi_fm.main(["--file", {str(path)!r}, "--num-channels", "{K}",
+                        "--channels", {",".join(map(str, range(stations)))!r},
+                        "--fused", "--torch-device", "cpu",
+                        "--out-dir", {str(tmp_path / "out")!r}]))
+"""
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_cli_raises_the_soft_limit_of_open_files(tmp_path):
+    """More stations than the soft limit of open files allows: the CLI
+    raises the limit up to the hard one and writes every station's file."""
+    import resource
+
+    hard = resource.getrlimit(resource.RLIMIT_NOFILE)[1]
+    if hard != resource.RLIM_INFINITY and hard < 512:
+        pytest.skip(f"the hard limit of open files is {hard}")
+    proc = _multi_fm_with_open_files(tmp_path, 64, hard, 128)
+    assert proc.returncode == 0, proc.stderr
+    sizes = {(tmp_path / "out" / f"station_{ch}.raw").stat().st_size
+             for ch in range(128)}
+    assert sizes == {2 * 680 // 85 * 16}
+
+
+def test_cli_stops_with_a_message_past_the_hard_limit(tmp_path):
+    proc = _multi_fm_with_open_files(tmp_path, 64, 64, 128)
+    assert proc.returncode == 1
+    assert "128 station files need" in proc.stderr
+    assert "hard limit (ulimit -Hn) is 64" in proc.stderr
+    assert "Traceback" not in proc.stderr

@@ -11,6 +11,9 @@ as one batch on the device (``models.wbfm_wideband``).  Fronts:
 
 Each station's 32 kHz s16 audio is written to ``<out-dir>/station_<ch>.raw``;
 with a single channel and no ``--out-dir`` the audio streams to stdout.
+Where the stations' files would pass the soft limit of open files
+(``RLIMIT_NOFILE``, often 1,024), the CLI raises it as far as the hard
+limit allows, and stops with a message where that is not enough.
 ``--rds`` runs an RDS receiver on every selected station's multiplex,
 printing ``[rds ch<N>] PI/PS/RT`` lines to stderr.
 The GPU is required: without one the CLI raises, unless ``--torch-device
@@ -24,11 +27,31 @@ from __future__ import annotations
 import argparse
 import logging
 import os
+import resource
 import sys
 
 import numpy as np
 
 log = logging.getLogger("multi_fm")
+
+
+def _room_for_files(n: int) -> None:
+    """Raise the soft limit of open files so that ``n`` more fit, with a
+    few to spare for the libraries, up to the hard limit; past that, stop
+    with a message."""
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    try:
+        in_use = len(os.listdir("/proc/self/fd"))
+    except OSError:
+        in_use = 64
+    need = in_use + n + 32
+    if soft == resource.RLIM_INFINITY or soft >= need:
+        return
+    if hard != resource.RLIM_INFINITY and hard < need:
+        raise SystemExit(f"multi_fm: {n} station files need {need} open "
+                         f"files, but the hard limit (ulimit -Hn) is {hard}: "
+                         "raise it or select fewer channels")
+    resource.setrlimit(resource.RLIMIT_NOFILE, (need, hard))
 
 
 def main(argv=None) -> int:
@@ -81,6 +104,7 @@ def main(argv=None) -> int:
     if not single_stdout:
         out_dir = args.out_dir or "."
         os.makedirs(out_dir, exist_ok=True)
+        _room_for_files(len(channels))
         for ch in channels:
             sinks.append(open(os.path.join(out_dir, f"station_{ch}.raw"), "wb"))
 

@@ -51,8 +51,8 @@ def reset_launch_counts() -> None:
 
 class PfbSpec(NamedTuple):
     """Static geometry of the fused channelizer (field for field the JAX
-    ``PallasPfbSpec``, with the same :meth:`validate`, so that a spec valid
-    in one package is valid in the other)."""
+    ``PallasPfbSpec``; :meth:`validate` keeps its conditions but one, so
+    that a spec valid in the JAX package is valid here)."""
 
     num_channels: int      # K (input frame width = total channels)
     branch_rows: int       # R = taps_per_branch + 1
@@ -74,14 +74,15 @@ class PfbSpec(NamedTuple):
         return 2 * self.chunk_complex
 
     def validate(self) -> None:
-        """The JAX spec's conditions.  The last one is a limit of the TPU
-        compiler (an 8-row sublane roll), not of K3; it stays so that specs
-        stay interchangeable."""
+        """The JAX spec's conditions but its 2*Ko <= 512, which is the TPU
+        matmul's lane width and not a limit of K3: here any Ko <= K.  The
+        last one is a limit of the TPU compiler (an 8-row sublane roll),
+        not of K3; it stays so that specs stay interchangeable."""
         if self.num_channels % 2:
             raise ValueError(f"num_channels={self.num_channels} must be even")
-        if 2 * self.out_channels > 512:
-            raise ValueError(f"{self.out_channels} output channels: packed "
-                             "lanes beyond one matmul")
+        if not 0 < self.out_channels <= self.num_channels:
+            raise ValueError(f"{self.out_channels} output channels of "
+                             f"{self.num_channels}")
         if self.frames_per_chunk % 8:
             raise ValueError(f"frames_per_chunk={self.frames_per_chunk} is "
                              "not a multiple of 8")
